@@ -1,0 +1,79 @@
+"""The hand-written CUDA kernels against their plain versions, on the card.
+
+Skips without a CUDA card (the kernels have no CPU or interpret mode).
+Imports no JAX, so it runs on a machine without it:
+
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
+
+Bounds as in chip_smoke.py: o 3e-2 abs, lse 1e-3 abs, dq/dk/dv
+3e-2·max|ref| as ceilings, and beside them every row within TOL_ROW of the
+reference row, relative to its RMS.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mpi_operator_tpu_torch.kernels import flash_attention as tfa
+
+TOL_ROW = 1e-2
+
+
+def _inputs(seed, b, t, h, h_kv, d):
+    rng = np.random.default_rng(seed)
+    shapes = ((b, h, t, d), (b, h_kv, t, d), (b, h_kv, t, d), (b, h, t, d))
+    return tuple(
+        torch.from_numpy(rng.standard_normal(s, np.float32)).to(torch.bfloat16).cuda()
+        for s in shapes
+    )
+
+
+def _max_err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def _row_err(got, ref):
+    """Worst per-row relative RMS error, rows floored at 0.1 x the tensor's
+    RMS (chip_smoke.py's tight check)."""
+    g = got.float().reshape(-1, got.shape[-1])
+    r = ref.float().reshape(-1, ref.shape[-1])
+    row_rms = r.pow(2).mean(-1).sqrt().clamp_min(0.1 * float(r.pow(2).mean().sqrt()))
+    return float(((g - r).pow(2).mean(-1).sqrt() / row_rms).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_kernels_match_plain(causal, d):
+    """K1, K2 and K3 with ragged T (200) and GQA (8 q heads on 2 kv heads)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU or interpret mode")
+    q, k, v, do = _inputs(5, 2, 200, 8, 2, d)
+    scale = d ** -0.5
+    o, lse = tfa.flash_fwd_cuda(q, k, v, causal, scale)
+    o_ref, lse_ref = tfa.flash_fwd_plain(q, k, v, causal, scale)
+    assert _max_err(o, o_ref) <= 3e-2
+    assert _row_err(o, o_ref) <= TOL_ROW
+    assert _max_err(lse, lse_ref) <= 1e-3
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, causal, scale)
+    got = (tfa.flash_bwd_dq_cuda(*args), *tfa.flash_bwd_dkv_cuda(*args))
+    want = (tfa.flash_bwd_dq_plain(*args), *tfa.flash_bwd_dkv_plain(*args))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert _max_err(g, w) <= 3e-2 * float(w.float().abs().max())
+        assert _row_err(g, w) <= TOL_ROW
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_checks_run_before_any_launch():
+    """Unsupported inputs raise before the kernel is launched or counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tfa.reset_launches()
+    x = torch.zeros(1, 2, 8, 64, device="cuda")
+    with pytest.raises(ValueError, match="bf16"):
+        tfa.flash_fwd_cuda(x, x, x, True, 1.0)
+    with pytest.raises(ValueError, match="tiles"):
+        tfa.flash_attention(*(x.bfloat16(),) * 3, block_q=32, block_k=32, layout="bhtd")
+    assert tfa.launches == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
