@@ -17,7 +17,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the smoke also shows that this check rejects a result whose last quarter
    of T is zero. Then each kernel, its plain version and PyTorch's
    ``scaled_dot_product_attention`` (the yardstick, never on the port's
-   path) timed with CUDA events at the model shape;
+   path) timed with CUDA events at the model shape, with each kernel's
+   TFLOP/s and share of its bound;
 4. reference: a small Llama (head_dim 64, so the kernels take it) on the
    card against the same weights on the CPU, where the plain versions run:
    loss and gradient norm agree;
@@ -27,7 +28,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    last is below the first (the batch is fixed), and each kernel's launch
    count in the training run is above 0.
 
-The line before the last is a JSON object with one entry per kernel; the
+The line before the last is a JSON object with one entry per kernel (its
+registers and spill bytes per head dim from ptxas beside its numbers); the
 last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -51,6 +53,11 @@ REPLACES = {
     "flash_fwd": "mpi_operator_tpu/kernels/flash_attention.py:172",
     "flash_bwd_dq": "mpi_operator_tpu/kernels/flash_attention.py:347",
     "flash_bwd_dkv": "mpi_operator_tpu/kernels/flash_attention.py:370",
+}
+CUDA_KERNEL = {  # wrapper -> its __global__ function in CU_SOURCE
+    "flash_fwd": "flash_fwd_kernel",
+    "flash_bwd_dq": "flash_bwd_dq_kernel",
+    "flash_bwd_dkv": "flash_bwd_dkv_kernel",
 }
 MODEL_SHAPE = (4, 2048, 16, 4, 128)  # B, T, H, Hkv, D of bench_single_chip at seq 2048
 SHAPES = [
@@ -90,17 +97,30 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build every library; returns, per wrapper, ptxas's registers and
+    spill bytes (stores + loads) of its kernel at each head dim."""
     from mpi_operator_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
     per_lib = _build.build()
     log(f"[build] {time.perf_counter() - t0:.1f}s "
         + ", ".join(f"{k} {v:.1f}s" for k, v in per_lib.items()))
+    res = {}
     for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"[ptxas] {line.strip()}")
+        res.update(_build.kernel_resources(_build.build_log(name), CUDA_KERNEL.values()))
+    out = {}
+    for wrapper, kernel in CUDA_KERNEL.items():
+        regs, spills = {}, {}
+        for d in (64, 128):
+            r = res.get(f"{kernel}<{d}>")
+            if r is None:
+                fail(f"ptxas reported nothing for {kernel}<{d}>")
+            regs[str(d)] = r["registers"]
+            spills[str(d)] = r["spill_stores"] + r["spill_loads"]
+        log(f"[build] {kernel}: registers {regs}, spill bytes {spills} (D64/D128)")
+        out[wrapper] = {"registers": regs, "spill_bytes": spills}
+    return out
 
 
 def _inputs(shape, seed: int):
@@ -221,14 +241,17 @@ def _time_ms(fn, reps: int = 10) -> float:
 
 
 def _bound(shape, n_matmuls: int, in_bytes: int, out_bytes: int):
-    """Least time (ms) for the work of one launch at ``shape``, causal: the
-    larger of bytes over HBM rate and tensor-core FLOP over the bf16 peak.
-    FLOP counts the causal triangle T(T+1)/2 of (q, k) pairs."""
+    """(least time in ms, what bounds it, FLOP) for the work of one launch at
+    ``shape``, causal: the larger of bytes over HBM rate and tensor-core FLOP
+    over the bf16 peak. FLOP counts the causal triangle T(T+1)/2 of (q, k)
+    pairs."""
     b, t, h, _, d = shape
     flops = 2 * n_matmuls * b * h * d * t * (t + 1) / 2
     bytes_ms = 1e3 * (in_bytes + out_bytes) / HBM_BYTES_PER_S
     flops_ms = 1e3 * flops / BF16_FLOPS_PER_S
-    return (flops_ms, "operations") if flops_ms >= bytes_ms else (bytes_ms, "bytes")
+    if flops_ms >= bytes_ms:
+        return flops_ms, "operations", flops
+    return bytes_ms, "bytes", flops
 
 
 def phase_timing(smi: str) -> dict:
@@ -268,14 +291,16 @@ def phase_timing(smi: str) -> dict:
                 _bound(MODEL_SHAPE, 4, 2 * n_q + 2 * n_kv + 2 * n_row, 2 * n_kv), None,
             ),
         }
-        for name, (kernel, plain, (bound_ms, bound_by), lib_ms) in specs.items():
+        for name, (kernel, plain, (bound_ms, bound_by, flops), lib_ms) in specs.items():
             ms = _time_ms(kernel)
             plain_ms = _time_ms(plain, reps=2)
+            tflops = flops / (ms * 1e-3) / 1e12
             out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             library_ms=lib_ms)
-            log(f"[timing] {name} {MODEL_SHAPE} causal: kernel {ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), sdpa "
-                f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'} [{smi}]")
+                             library_ms=lib_ms, tflops=tflops, bound_share=bound_ms / ms)
+            log(f"[timing] {name} {MODEL_SHAPE} causal: kernel {ms:.4f} ms "
+                f"({tflops:.1f} TFLOP/s, {100 * bound_ms / ms:.1f} % of bound), plain "
+                f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), sdpa "
+                f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} [{smi}]")
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k_x, v_x))
 
     def sdpa_fwd_bwd():
@@ -360,7 +385,7 @@ def phase_main(smi: str) -> dict:
 
 def main() -> None:
     smi = phase_device()
-    phase_build()
+    resources = phase_build()
     errs = phase_kernels()
     times = phase_timing(smi)
     phase_reference()
@@ -374,6 +399,7 @@ def main() -> None:
             "launches": launches[name],
             "max_abs_err": errs[name],
             **times[name],
+            **resources[name],
         }
         for name in REPLACES
     ]

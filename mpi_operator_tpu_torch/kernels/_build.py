@@ -1,11 +1,15 @@
 """Build the port's CUDA sources with ``nvcc`` at first use and load them.
 
-Each source under ``csrc/`` becomes its own shared library with a plain C
-interface, loaded with ``ctypes`` (no PyTorch headers: a file that includes
-them takes minutes to compile, a plain one seconds). Libraries land in
-``kernels/build/<name>-<hash>/``, keyed by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one loads at once. All
-missing libraries are compiled in parallel, one ``nvcc`` per source.
+Each ``.cu`` source under ``csrc/`` becomes its own shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers: a file that
+includes them takes minutes to compile, a plain one seconds). Libraries land
+in ``kernels/build/<name>-<hash>/``, keyed by a hash of the source, of every
+``csrc/`` header it includes (``#include "..."``, followed recursively) and
+of the flags, so an edit to any of them rebuilds and an unchanged tree loads
+at once. All missing libraries are compiled in parallel, one ``nvcc`` per
+source. The TMA descriptors the kernels take are encoded by libcuda's
+``cuTensorMapEncodeTiled``, which the sources reach through the CUDA runtime
+(``cudaGetDriverEntryPoint``), so nothing links against ``libcuda``.
 
 Nothing here runs on import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -16,10 +20,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -52,11 +57,29 @@ def nvcc_path() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[str]:
+    """The source of library ``name`` and every file under ``csrc/`` that it
+    includes with quotes, followed recursively: the files its build reads."""
+    found: List[str] = []
+    todo = [SOURCES[name]]
+    while todo:
+        rel = todo.pop()
+        if rel in found:
+            continue
+        found.append(rel)
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            todo.extend(m.decode() for m in _LOCAL_INCLUDE.findall(f.read()))
+    return sorted(found)
+
+
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, SOURCES[name])
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for rel in sources(name):
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            h.update(rel.encode() + b"\0" + f.read() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}", f"lib{name}.so")
 
@@ -109,6 +132,46 @@ def build_log(name: str) -> str:
         return ""
     with open(path) as f:
         return f.read()
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def kernel_resources(log: str, kernels: Iterable[str]) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes per compiled kernel, read from a ptxas
+    ``-v`` log (``build_log``). ``kernels`` are the kernels' names in the
+    source; a template instance is keyed as ``name<arg,...>`` by its integer
+    template arguments, e.g. ``flash_fwd_kernel<128>``."""
+    out: Dict[str, Dict[str, int]] = {}
+    key = None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            key = None
+            mangled = m.group(1)
+            for base in kernels:
+                at = mangled.find(f"{len(base)}{base}")
+                if at < 0:
+                    continue
+                rest = mangled[at + len(str(len(base))) + len(base):]
+                args = re.match(r"I((?:Li\d+E)+)E", rest)
+                ints = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+                key = f"{base}<{','.join(ints)}>" if ints else base
+                out[key] = {"registers": 0, "spill_stores": 0, "spill_loads": 0}
+                break
+            continue
+        if key is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            out[key]["spill_stores"] = int(m.group(1))
+            out[key]["spill_loads"] = int(m.group(2))
+        m = _PTXAS_REGS.search(line)
+        if m:
+            out[key]["registers"] = int(m.group(1))
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -9,25 +9,38 @@
 //
 // What bounds them on this card: operations. At the Llama shape (T=2048,
 // D=128) each kernel does ~D/2 tensor-core FLOP per byte it must move, well
-// above the H100's ~295 FLOP/byte ridge, so the tensor cores are the limit.
-// This first design is the plain, correct one: 64x64 (Q x K) tiles, four
-// warps per block, each warp owning 16 rows of the tile, nvcuda::wmma
-// 16x16x16 bf16 -> f32 products on tiles staged in padded shared memory.
-// wgmma, TMA and warp specialisation are later speed steps.
+// above the H100's ~295 FLOP/byte ridge, so the tensor cores are the limit,
+// and the one road to their rate is wgmma fed by TMA.
+//
+// K1 and K3 are built on Hopper's warpgroup MMA (hopper.cuh): two consumer
+// warpgroups of 64 rows each per CTA, every accumulator in registers, tiles
+// brought by TMA (128-byte swizzle, started by thread 0) into a 2-stage ring
+// whose "full" mbarriers count the bytes in, so the next tile's copy
+// overlaps this tile's products. A stage is refilled once both warpgroups
+// are done with it: K1 counts that on "empty" mbarriers, K3 has a CTA
+// barrier per tile anyway (for lse/delta) and refills after it. Scores and probabilities never touch shared memory: an
+// m64nN f32 accumulator maps in place onto the bf16 register A operand of
+// the next product (hopper::acc_to_a).
+// K2 is the first design still: 64x64 tiles, four warps of 16 rows each,
+// nvcuda::wmma 16x16x16 on tiles staged in padded shared memory.
 //
 // Design notes against the TPU kernels:
 // - The TPU grid runs in order and carries (acc, m, l) in VMEM scratch across
-//   the innermost grid axis. Here that axis is a loop inside the block, and
-//   the block grid covers (q-tile, b*h) for K1/K2 and (k-tile, b*h_kv) for K3.
+//   the innermost grid axis. Here that axis is a loop inside the CTA, and the
+//   grid covers (q tile, b*h) for K1/K2 and (k tile, b*h_kv) for K3.
 // - Causal tile skipping is a loop bound from the same algebra as
-//   _causal_last_k_tile / _causal_first_q_tile, not a clamp of an index map.
-// - The TPU wrappers zero-pad T to block multiples; here every tile load
-//   zero-fills the rows past T and the score mask (k_idx < T) keeps them out,
-//   so no padded copy of q/k/v is made. Rows past T are never stored.
-// - K3 loops over the g q-heads of a kv head inside the block and sums their
+//   _causal_last_k_tile / _causal_first_q_tile, not a clamp of an index map;
+//   the heaviest tiles are scheduled first.
+// - The TPU wrappers zero-pad T to block multiples. Here K1/K3 read through
+//   3-D tensor maps (D, T, B*heads), so TMA zero-fills rows past T instead of
+//   reading the next head, and K2's loads zero-fill likewise; the score mask
+//   (k < T, q < T) keeps them out, and rows past T are never stored.
+// - K3 loops over the g q-heads of a kv head inside the CTA and sums their
 //   dk/dv in f32 registers: no per-q-head [B,H,T,D] partials, no atomics.
 // - Rounding points match the TPU kernels: P is rounded to bf16 before P.V,
 //   dS to bf16 before its products, dq/dk scaled by `scale` when emitted.
+//   K1 and K3 take exp as exp2 with scale*log2(e) folded into one multiply
+//   (the plain versions use exp; the two differ by f32 rounding only).
 //
 // Plain C interface (loaded with ctypes): every launcher returns
 // cudaGetLastError() right after its launch, and the Python wrapper raises on
@@ -39,16 +52,453 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BQ = 64;           // q rows per tile
-constexpr int BK = 64;           // k rows per tile
+constexpr float NEG_INF = -1e30f;  // large-negative, not -inf: exp() stays NaN-free
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// _causal_last_k_tile: largest ki whose tile meets q tile qi's causal region.
+template <int TQ, int TK>
+__device__ __forceinline__ int causal_last_k_tile(int qi) {
+  return ((qi + 1) * TQ + TK - 1) / TK - 1;
+}
+
+// _causal_first_q_tile: smallest qi whose tile meets k tile ki's causal region.
+template <int TQ, int TK>
+__device__ __forceinline__ int causal_first_q_tile(int ki) {
+  return (ki * TK) / TQ;
+}
+
+// dynamic shared memory, moved up to the 1024-byte boundary the 128-byte
+// swizzle needs (the launch asks for 1024 bytes more than the layout)
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
+  return raw + ((1024u - (hopper::smem_u32(raw) & 1023u)) & 1023u);
+}
+
+// ---------------------------------------------------------------------------
+// K1 and K3: wgmma + TMA
+// ---------------------------------------------------------------------------
+
+constexpr int WG_THREADS = 128;          // one warpgroup
+constexpr int WG_CTA = 2 * WG_THREADS;   // two consumer warpgroups per CTA
+
+constexpr int FWD_BQ = 128;  // K1: q rows per CTA, 64 per warpgroup
+constexpr int FWD_BK = 128;  // K1: k rows per stage of the ring
+constexpr int DKV_BK = 128;  // K3: k rows per CTA, 64 per warpgroup
+constexpr int DKV_BQ = 64;   // K3: q rows per stage of the ring
+
+template <int D> struct FwdSmem {
+  static constexpr int kQ = FWD_BQ * D * 2;   // Q tile, bytes
+  static constexpr int kKV = FWD_BK * D * 2;  // one K or V tile
+  static constexpr int kStage = 2 * kKV;      // K then V
+  static constexpr size_t kBytes = 1024 + kQ + 2 * kStage + 8 * 8;
+};
+
+// K1. CTA (q tile of 128 rows, b*h); warpgroup w owns rows 64w..64w+63 and
+// walks the k tiles with the online softmax in registers: S = Q.K^T (both
+// operands in shared memory), P = exp2(S - m) rounded to bf16 in place as
+// the A operand of O += P.V (V read MN-major). Each accumulator row lives in
+// the 4 threads of a quad: two shuffles for the max, two for the final sum.
+template <int D>
+__global__ void __launch_bounds__(WG_CTA, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int H, int Hkv, int T, int causal, float scale_log2) {
+  using L = FwdSmem<D>;
+  constexpr int NC = D / 64;  // 64-wide column blocks of a row
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  unsigned char* ring = smem + L::kQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + 2 * L::kStage);  // [2] tile landed
+  uint64_t* empty = full + 2;  // [2] all 8 warps done with the stage
+  uint64_t* qbar = full + 4;
+
+  const int qi = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int bhk = b * Hkv + h / (H / Hkv);
+  const int q0 = qi * FWD_BQ;
+  const int n_kb = (T + FWD_BK - 1) / FWD_BK;
+  const int k_end = causal ? min(n_kb, causal_last_k_tile<FWD_BQ, FWD_BK>(qi) + 1) : n_kb;
+  const int tid = threadIdx.x, wg = tid / WG_THREADS, lane = tid % 32;
+  const int warp_row = wg * 64 + (tid % WG_THREADS) / 32 * 16;  // warp's first row in the tile
+  const int row = q0 + warp_row + lane / 4;  // q of accumulator registers i with i % 4 < 2; +8 else
+
+  auto stage_k = [&](int s) { return reinterpret_cast<bf16*>(ring + s * L::kStage); };
+  auto stage_v = [&](int s) { return reinterpret_cast<bf16*>(ring + s * L::kStage + L::kKV); };
+  auto load_kv = [&](int j) {
+    const int s = j & 1;
+    hopper::mbar_expect_tx(&full[s], L::kStage);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      hopper::tma_load_3d(stage_k(s) + c * FWD_BK * 64, &tm_k, &full[s], c * 64, j * FWD_BK, bhk);
+      hopper::tma_load_3d(stage_v(s) + c * FWD_BK * 64, &tm_v, &full[s], c * 64, j * FWD_BK, bhk);
+    }
+  };
+
+  if (tid == 0) {
+    hopper::mbar_init(&full[0], 1);
+    hopper::mbar_init(&full[1], 1);
+    hopper::mbar_init(&empty[0], 2 * WG_THREADS / 32);
+    hopper::mbar_init(&empty[1], 2 * WG_THREADS / 32);
+    hopper::mbar_init(qbar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(qbar, L::kQ);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      hopper::tma_load_3d(sQ + c * FWD_BQ * 64, &tm_q, qbar, c * 64, q0, bh);
+    load_kv(0);
+    if (k_end > 1) load_kv(1);
+  }
+
+  float acc_o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};  // running max of rows row, row + 8, in log2 units
+  float l[2] = {0.f, 0.f};          // this thread's share of the running sums
+  const bf16* sQw = sQ + wg * 64 * 64;  // this warpgroup's rows in each column block
+  hopper::mbar_wait(qbar, 0);
+
+  for (int j = 0; j < k_end; ++j) {
+    const int s = j & 1;
+    hopper::mbar_wait(&full[s], (j >> 1) & 1);
+    float acc_s[FWD_BK / 2];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Wgmma<FWD_BK>::ss(acc_s, hopper::desc_k_major<FWD_BQ>(sQw, kk),
+                                hopper::desc_k_major<FWD_BK>(stage_k(s), kk), kk > 0);
+    hopper::wgmma_commit();
+    // while S computes: refill the stage of tile j-1 with tile j+1 once
+    // both warpgroups have released it
+    if (tid == 0 && j >= 1 && j + 1 < k_end) {
+      hopper::mbar_wait(&empty[(j - 1) & 1], ((j - 1) >> 1) & 1);
+      load_kv(j + 1);
+    }
+    __syncwarp();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc_s);
+
+    const int k0 = j * FWD_BK;
+    const bool mask = k0 + FWD_BK > T || (causal && k0 + FWD_BK - 1 > q0 + warp_row);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < FWD_BK / 2; ++i) {
+      float x = acc_s[i] * scale_log2;
+      if (mask) {
+        const int col = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        if (col >= T || (causal && col > row + 8 * ((i / 2) % 2))) x = NEG_INF;
+      }
+      acc_s[i] = x;
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < FWD_BK / 2; ++i) {
+      const float p = exp2f(acc_s[i] - m[(i / 2) % 2]);
+      l[(i / 2) % 2] += p;  // the f32 p, before its bf16 rounding
+      acc_s[i] = p;
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_o[i] *= corr[(i / 2) % 2];
+    uint32_t a_p[FWD_BK / 16][4];
+    hopper::acc_to_a(acc_s, a_p);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < FWD_BK / 16; ++kk)
+      hopper::Wgmma<D>::template rs<1>(acc_o, a_p[kk], hopper::desc_mn_major<FWD_BK>(stage_v(s), kk),
+                                       1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc_o);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  // emit; fully masked rows (l == 0) give o = 0, not NaN
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = (l[r] == 0.f) ? 1.f : l[r];
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int r = row + 8 * ((i / 2) % 2);
+    if (r < T) {
+      const int col = 8 * (i / 4) + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(o + ((size_t)bh * T + r) * D + col) =
+          __floats2bfloat162_rn(acc_o[i] / l[(i / 2) % 2], acc_o[i + 1] / l[(i / 2) % 2]);
+    }
+  }
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row + 8 * r < T) lse[(size_t)bh * T + row + 8 * r] = m[r] * LN2 + logf(l[r]);
+  }
+}
+
+template <int D> struct DkvSmem {
+  static constexpr int kKV = DKV_BK * D * 2;    // K or V, bytes
+  static constexpr int kQ = DKV_BQ * D * 2;     // a Q or dO tile
+  static constexpr int kStage = 2 * kQ;         // Q then dO
+  static constexpr int kRows = 2 * DKV_BQ * 4;  // lse then delta of a q tile
+  static constexpr size_t kBytes = 1024 + 2 * kKV + 2 * kStage + 2 * kRows + 8 * 8;
+};
+
+// K3. CTA (k tile of 128 rows, b*h_kv); warpgroup w owns k rows 64w..64w+63,
+// loads its K and V once, and walks every (q head of the group, q tile of 64
+// from causal_first_q_tile) through the ring, which brings Q and dO. lse and
+// delta (64 floats each a tile) do not come by TMA, whose boxes must start
+// 16-byte aligned, which a row of them does not at every T: one thread per
+// value loads them a tile ahead into a register and stores them into a
+// double-buffered slot behind one CTA barrier per tile. In the transposed
+// form S^T = K.Q^T and dP^T = V.dO^T come out with k on the rows, so P^T and
+// dS^T are register A operands of dV += P^T.dO and dK += dS^T.Q, with dO and
+// Q read MN-major. dK and dV stay f32 registers over the whole group: no
+// atomics, no [B,H,T,D] transient.
+template <int D>
+__global__ void __launch_bounds__(WG_CTA, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Hkv, int T,
+                     int causal, float scale, float scale_log2) {
+  using L = DkvSmem<D>;
+  constexpr int NC = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = reinterpret_cast<bf16*>(smem + L::kKV);
+  unsigned char* ring = smem + 2 * L::kKV;
+  float* rows = reinterpret_cast<float*>(ring + 2 * L::kStage);  // [2][lse 64, delta 64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + 2 * L::kStage + 2 * L::kRows);  // [2]
+  uint64_t* kvbar = full + 2;
+
+  const int ki = blockIdx.x;  // heaviest causal tiles (first k tiles) first
+  const int bhk = blockIdx.y;
+  const int b = bhk / Hkv, hk = bhk % Hkv;
+  const int g = H / Hkv;
+  const int k0 = ki * DKV_BK;
+  const int n_qb = (T + DKV_BQ - 1) / DKV_BQ;
+  const int q_begin = causal ? causal_first_q_tile<DKV_BQ, DKV_BK>(ki) : 0;
+  const int nq = n_qb - q_begin;
+  const int n_tiles = g * nq;  // (q head, q tile) pairs, q tiles innermost
+  const int tid = threadIdx.x, wg = tid / WG_THREADS, lane = tid % 32;
+  const int warp_row = wg * 64 + (tid % WG_THREADS) / 32 * 16;
+  const int row = k0 + warp_row + lane / 4;  // k of accumulator registers i with i % 4 < 2; +8 else
+
+  auto stage_q = [&](int s) { return reinterpret_cast<bf16*>(ring + s * L::kStage); };
+  auto stage_do = [&](int s) { return reinterpret_cast<bf16*>(ring + s * L::kStage + L::kQ); };
+  auto load_q = [&](int j) {
+    const int s = j & 1;
+    const int bh = b * H + hk * g + j / nq;
+    const int q0 = (q_begin + j % nq) * DKV_BQ;
+    hopper::mbar_expect_tx(&full[s], L::kStage);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      hopper::tma_load_3d(stage_q(s) + c * DKV_BQ * 64, &tm_q, &full[s], c * 64, q0, bh);
+      hopper::tma_load_3d(stage_do(s) + c * DKV_BQ * 64, &tm_do, &full[s], c * 64, q0, bh);
+    }
+  };
+
+  if (tid == 0) {
+    hopper::mbar_init(&full[0], 1);
+    hopper::mbar_init(&full[1], 1);
+    hopper::mbar_init(kvbar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(kvbar, 2 * L::kKV);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      hopper::tma_load_3d(sK + c * DKV_BK * 64, &tm_k, kvbar, c * 64, k0, bhk);
+      hopper::tma_load_3d(sV + c * DKV_BK * 64, &tm_v, kvbar, c * 64, k0, bhk);
+    }
+    load_q(0);
+    if (n_tiles > 1) load_q(1);
+  }
+
+  float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    acc_dk[i] = 0.f;
+    acc_dv[i] = 0.f;
+  }
+  const bf16* sKw = sK + wg * 64 * 64;  // this warpgroup's rows in each column block
+  const bf16* sVw = sV + wg * 64 * 64;
+  // thread t < 128 carries value t % 64 of lse (t < 64) or delta of a tile; 0 past T
+  auto fetch_row = [&](int j) {
+    const int q = (q_begin + j % nq) * DKV_BQ + tid % DKV_BQ;
+    const float* src = tid < DKV_BQ ? lse : delta;
+    return (tid < 2 * DKV_BQ && q < T) ? src[(size_t)(b * H + hk * g + j / nq) * T + q] : 0.f;
+  };
+  float next_row = fetch_row(0);
+  hopper::mbar_wait(kvbar, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j & 1;
+    const int q0 = (q_begin + j % nq) * DKV_BQ;
+    const float* s_lse = rows + s * 2 * DKV_BQ;
+    const float* s_delta = s_lse + DKV_BQ;
+    // the row slot was last read in tile j - 2, which every thread has finished
+    if (tid < 2 * DKV_BQ) rows[s * 2 * DKV_BQ + tid] = next_row;
+    __syncthreads();
+    // every thread is done with tile j - 1: refill its stage with tile j + 1
+    if (tid == 0 && j >= 1 && j + 1 < n_tiles) load_q(j + 1);
+    if (j + 1 < n_tiles) next_row = fetch_row(j + 1);  // lands while this tile computes
+    hopper::mbar_wait(&full[s], (j >> 1) & 1);
+    float acc_s[DKV_BQ / 2], acc_dp[DKV_BQ / 2];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Wgmma<DKV_BQ>::ss(acc_s, hopper::desc_k_major<DKV_BK>(sKw, kk),
+                                hopper::desc_k_major<DKV_BQ>(stage_q(s), kk), kk > 0);
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Wgmma<DKV_BQ>::ss(acc_dp, hopper::desc_k_major<DKV_BK>(sVw, kk),
+                                hopper::desc_k_major<DKV_BQ>(stage_do(s), kk), kk > 0);
+    hopper::wgmma_commit();
+
+    const bool mask = q0 + DKV_BQ > T || (causal && q0 < k0 + warp_row + 15);
+    hopper::wgmma_wait<1>();  // S^T is in
+    hopper::fence_regs(acc_s);
+#pragma unroll
+    for (int i = 0; i < DKV_BQ / 2; ++i) {
+      const int col = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+      float p = exp2f(fmaf(acc_s[i], scale_log2, -s_lse[col] * LOG2E));
+      if (mask) {
+        const int q = q0 + col;
+        if (q >= T || (causal && q < row + 8 * ((i / 2) % 2))) p = 0.f;
+      }
+      acc_s[i] = p;
+    }
+    hopper::wgmma_wait<0>();  // dP^T is in
+    hopper::fence_regs(acc_dp);
+#pragma unroll
+    for (int i = 0; i < DKV_BQ / 2; ++i) {
+      const int col = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+      acc_dp[i] = acc_s[i] * (acc_dp[i] - s_delta[col]);  // dS^T, f32
+    }
+    uint32_t a_p[DKV_BQ / 16][4], a_ds[DKV_BQ / 16][4];
+    hopper::acc_to_a(acc_s, a_p);
+    hopper::acc_to_a(acc_dp, a_ds);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DKV_BQ / 16; ++kk)
+      hopper::Wgmma<D>::template rs<1>(acc_dv, a_p[kk],
+                                       hopper::desc_mn_major<DKV_BQ>(stage_do(s), kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < DKV_BQ / 16; ++kk)
+      hopper::Wgmma<D>::template rs<1>(acc_dk, a_ds[kk],
+                                       hopper::desc_mn_major<DKV_BQ>(stage_q(s), kk), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc_dv);
+    hopper::fence_regs(acc_dk);
+  }
+
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int r = row + 8 * ((i / 2) % 2);
+    if (r < T) {
+      const size_t at = ((size_t)bhk * T + r) * D + 8 * (i / 4) + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(acc_dk[i] * scale, acc_dk[i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(acc_dv[i], acc_dv[i + 1]);
+    }
+  }
+}
+
+// Layout probe for the card tests: one warpgroup computes S = A.B^T (A [64,D]
+// and B [N,D] K-major from TMA tiles) and O = bf16(S).V (V [N,D] read
+// MN-major, bf16(S) the register A operand in place), the two operand paths
+// K1 and K3 are built from. S and O are written in f32.
+template <int N, int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wgmma_probe_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+                   const __grid_constant__ CUtensorMap tm_v, float* __restrict__ s_out,
+                   float* __restrict__ o_out) {
+  constexpr int NC = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  bf16* sA = reinterpret_cast<bf16*>(smem);
+  bf16* sB = sA + 64 * D;
+  bf16* sV = sB + N * D;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sV + N * D);
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int row = tid / 32 * 16 + lane / 4;
+  if (tid == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(bar, (64 + 2 * N) * D * 2);
+    for (int c = 0; c < NC; ++c) {
+      hopper::tma_load_3d(sA + c * 64 * 64, &tm_a, bar, c * 64, 0, 0);
+      hopper::tma_load_3d(sB + c * N * 64, &tm_b, bar, c * 64, 0, 0);
+      hopper::tma_load_3d(sV + c * N * 64, &tm_v, bar, c * 64, 0, 0);
+    }
+  }
+  hopper::mbar_wait(bar, 0);
+  float acc_s[N / 2];
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::Wgmma<N>::ss(acc_s, hopper::desc_k_major<64>(sA, kk), hopper::desc_k_major<N>(sB, kk),
+                         kk > 0);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc_s);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+    s_out[(row + 8 * ((i / 2) % 2)) * N + 8 * (i / 4) + 2 * (lane % 4) + i % 2] = acc_s[i];
+  uint32_t a[N / 16][4];
+  hopper::acc_to_a(acc_s, a);
+  float acc_o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_o[i] = 0.f;
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    hopper::Wgmma<D>::template rs<1>(acc_o, a[kk], hopper::desc_mn_major<N>(sV, kk), 1);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc_o);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i)
+    o_out[(row + 8 * ((i / 2) % 2)) * D + 8 * (i / 4) + 2 * (lane % 4) + i % 2] = acc_o[i];
+}
+
+// ---------------------------------------------------------------------------
+// K2: wmma (first design)
+// ---------------------------------------------------------------------------
+
+constexpr int BQ = 64;           // K2: q rows per tile
+constexpr int BK = 64;           // K2: k rows per tile
 constexpr int NWARPS = 4;        // each warp owns 16 rows of a 64-row tile
 constexpr int NTHREADS = NWARPS * 32;
-constexpr float NEG_INF = -1e30f;  // large-negative, not -inf: exp() stays NaN-free
 
 // Padded shared-memory row strides (elements). The pads break the 2-way..8-way
 // bank conflicts of 128/256-byte rows and keep every 16-row tile start
@@ -57,35 +507,13 @@ template <int D> struct Ld {
   static constexpr int kBf16Tile = D + 8;   // bf16 [rows, D] tiles
   static constexpr int kF32Tile = D + 4;    // f32 [rows, D] staging
 };
-constexpr int LDP = BK + 8;                  // bf16 [64, 64] tiles (P, dS)
+constexpr int LDP = BK + 8;                  // bf16 [64, 64] tiles (dS)
 constexpr int LDS = BK + 4;                  // f32 [64, 64] tiles (S, dP)
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// _causal_last_k_tile: largest ki whose tile meets q tile qi's causal region.
-__device__ __forceinline__ int causal_last_k_tile(int qi) {
-  return ((qi + 1) * BQ + BK - 1) / BK - 1;
-}
-
-// _causal_first_q_tile: smallest qi whose tile meets k tile ki's causal region.
-__device__ __forceinline__ int causal_first_q_tile(int ki) {
-  return (ki * BK) / BQ;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // Copy rows [row0, row0+ROWS) of a contiguous [T, D] bf16 matrix into a padded
 // shared tile, 16 bytes per thread per step; rows at or past T are zero-filled
@@ -151,125 +579,6 @@ __device__ __forceinline__ void warp_ab_accum(FragC* acc, const bf16* a, const b
   }
 }
 
-template <int D> struct FwdSmem {
-  static constexpr size_t kBytes =
-      3 * (size_t)BQ * Ld<D>::kBf16Tile * sizeof(bf16)   // Q, K, V
-      + (size_t)BQ * LDP * sizeof(bf16)                  // P
-      + (size_t)BQ * LDS * sizeof(float)                 // S
-      + (size_t)BQ * Ld<D>::kF32Tile * sizeof(float)     // O accumulator
-      + 2 * (size_t)BQ * sizeof(float);                  // m, l
-};
-
-// K1. Block (q-tile, b*h); loops over k tiles with the online softmax.
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H, int Hkv, int T, int causal, float scale) {
-  constexpr int LD = Ld<D>::kBf16Tile;
-  constexpr int LDO = Ld<D>::kF32Tile;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * LD;
-  bf16* sV = sK + BK * LD;
-  bf16* sP = sV + BK * LD;
-  float* sS = reinterpret_cast<float*>(sP + BQ * LDP);
-  float* sO = sS + BQ * LDS;
-  float* sM = sO + BQ * LDO;
-  float* sL = sM + BQ;
-
-  // heaviest causal tiles (last q tiles) are scheduled first
-  const int qi = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const bf16* qp = q + (size_t)bh * T * D;
-  const bf16* kp = k + (size_t)(b * Hkv + hk) * T * D;
-  const bf16* vp = v + (size_t)(b * Hkv + hk) * T * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-  const int q0 = qi * BQ;
-
-  load_tile<D, BQ>(sQ, qp, q0, T);
-  for (int i = threadIdx.x; i < BQ * LDO; i += NTHREADS) sO[i] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-    sM[i] = NEG_INF;
-    sL[i] = 0.f;
-  }
-  const int n_kb = (T + BK - 1) / BK;
-  const int k_end = causal ? min(n_kb, causal_last_k_tile(qi) + 1) : n_kb;
-
-  for (int ki = 0; ki < k_end; ++ki) {
-    __syncthreads();  // every warp is done with the previous K/V tiles
-    load_tile<D, BK>(sK, kp, ki * BK, T);
-    load_tile<D, BK>(sV, vp, ki * BK, T);
-    __syncthreads();
-
-    warp_abt<D>(sS + r0 * LDS, sQ + r0 * LD, sK);
-    __syncwarp();
-
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr;
-      const int q_idx = q0 + r;
-      float s[2];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = lane + 32 * c;
-        const int k_idx = ki * BK + col;
-        const bool valid = k_idx < T && (!causal || q_idx >= k_idx);
-        s[c] = valid ? sS[r * LDS + col] * scale : NEG_INF;
-        mx = fmaxf(mx, s[c]);
-      }
-      mx = warp_max(mx);
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p0 = expf(s[0] - m_new);
-      const float p1 = expf(s[1] - m_new);
-      const float psum = warp_sum(p0 + p1);  // the f32 p, before its bf16 rounding
-      const float corr = expf(m_prev - m_new);
-      sP[r * LDP + lane] = __float2bfloat16(p0);
-      sP[r * LDP + lane + 32] = __float2bfloat16(p1);
-      for (int c = lane; c < D; c += 32) sO[r * LDO + c] *= corr;
-      __syncwarp();
-      if (lane == 0) {
-        sL[r] = sL[r] * corr + psum;
-        sM[r] = m_new;
-      }
-    }
-    __syncwarp();
-
-    // O[r0:r0+16, :] += P[r0:r0+16, :] . V
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      FragC acc;
-      wmma::load_matrix_sync(acc, sO + r0 * LDO + j * 16, LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        FragA fa;
-        wmma::load_matrix_sync(fa, sP + r0 * LDP + kk, LDP);
-        FragBRow fb;
-        wmma::load_matrix_sync(fb, sV + kk * LD + j * 16, LD);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sO + r0 * LDO + j * 16, acc, LDO, wmma::mem_row_major);
-    }
-  }
-  __syncwarp();
-
-  // emit the warp's rows; fully masked rows (l == 0) give o = 0, not NaN
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = r0 + rr;
-    const int q_idx = q0 + r;
-    if (q_idx >= T) break;
-    const float l = sL[r];
-    const float safe = (l == 0.f) ? 1.f : l;
-    bf16* orow = o + ((size_t)bh * T + q_idx) * D;
-    for (int c = lane; c < D; c += 32) orow[c] = __float2bfloat16(sO[r * LDO + c] / safe);
-    if (lane == 0) lse[(size_t)bh * T + q_idx] = sM[r] + logf(safe);
-  }
-}
-
 template <int D> struct DqSmem {
   static constexpr size_t kBytes =
       4 * (size_t)BQ * Ld<D>::kBf16Tile * sizeof(bf16)   // Q, dO, K, V
@@ -319,7 +628,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
 
   const int n_kb = (T + BK - 1) / BK;
-  const int k_end = causal ? min(n_kb, causal_last_k_tile(qi) + 1) : n_kb;
+  const int k_end = causal ? min(n_kb, causal_last_k_tile<BQ, BK>(qi) + 1) : n_kb;
   for (int ki = 0; ki < k_end; ++ki) {
     __syncthreads();
     load_tile<D, BK>(sK, kp, ki * BK, T);
@@ -355,114 +664,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D> struct DkvSmem {
-  static constexpr size_t kBytes =
-      4 * (size_t)BQ * Ld<D>::kBf16Tile * sizeof(bf16)   // K, V, Q, dO
-      + 2 * (size_t)BQ * LDP * sizeof(bf16)              // P^T, dS^T
-      + 2 * (size_t)BQ * LDS * sizeof(float)             // S^T, dP^T (then staging)
-      + 2 * (size_t)BQ * sizeof(float);                  // lse, delta
-};
-
-// K3. Block (k-tile, b*h_kv): dv = sum_q P^T.dO and dk = scale * sum_q dS^T.Q,
-// summed over the g q-heads of the kv head in f32 registers.
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv,
-                     int H, int Hkv, int T, int causal, float scale) {
-  constexpr int LD = Ld<D>::kBf16Tile;
-  constexpr int LDO = Ld<D>::kF32Tile;
-  static_assert(BK * LDO <= 2 * BK * LDS, "dk/dv staging must fit in the S/dP area");
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BK * LD;
-  bf16* sQ = sV + BK * LD;
-  bf16* sdO = sQ + BQ * LD;
-  bf16* sPt = sdO + BQ * LD;
-  bf16* sdSt = sPt + BK * LDP;
-  float* sSt = reinterpret_cast<float*>(sdSt + BK * LDP);
-  float* sdPt = sSt + BK * LDS;
-  float* sLse = sdPt + BK * LDS;
-  float* sDelta = sLse + BQ;
-
-  // heaviest causal tiles (first k tiles) are scheduled first
-  const int ki = blockIdx.x;
-  const int bhk = blockIdx.y;
-  const int b = bhk / Hkv, hk = bhk % Hkv;
-  const int g = H / Hkv;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-  const int k0 = ki * BK;
-
-  load_tile<D, BK>(sK, k + (size_t)bhk * T * D, k0, T);
-  load_tile<D, BK>(sV, v + (size_t)bhk * T * D, k0, T);
-
-  FragC dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(dk_acc[j], 0.f);
-    wmma::fill_fragment(dv_acc[j], 0.f);
-  }
-
-  const int n_qb = (T + BQ - 1) / BQ;
-  const int q_begin = causal ? causal_first_q_tile(ki) : 0;
-  for (int hg = 0; hg < g; ++hg) {
-    const int bh = b * H + hk * g + hg;
-    const bf16* qp = q + (size_t)bh * T * D;
-    const bf16* dop = dout + (size_t)bh * T * D;
-    for (int qi = q_begin; qi < n_qb; ++qi) {
-      const int q0 = qi * BQ;
-      __syncthreads();
-      load_tile<D, BQ>(sQ, qp, q0, T);
-      load_tile<D, BQ>(sdO, dop, q0, T);
-      load_rows_f32(sLse, lse + (size_t)bh * T, q0, T);
-      load_rows_f32(sDelta, delta + (size_t)bh * T, q0, T);
-      __syncthreads();
-
-      warp_abt<D>(sSt + r0 * LDS, sK + r0 * LD, sQ);    // S^T  = K Q^T
-      warp_abt<D>(sdPt + r0 * LDS, sV + r0 * LD, sdO);  // dP^T = V dO^T
-      __syncwarp();
-      for (int i = lane; i < 16 * BQ; i += 32) {
-        const int r = r0 + i / BQ, c = i % BQ;
-        const int k_idx = k0 + r, q_idx = q0 + c;
-        const bool valid = q_idx < T && k_idx < T && (!causal || q_idx >= k_idx);
-        const float p = valid ? expf(sSt[r * LDS + c] * scale - sLse[c]) : 0.f;
-        sPt[r * LDP + c] = __float2bfloat16(p);
-        sdSt[r * LDP + c] = __float2bfloat16(p * (sdPt[r * LDS + c] - sDelta[c]));
-      }
-      __syncwarp();
-      warp_ab_accum<D>(dv_acc, sPt + r0 * LDP, sdO);    // dv += P^T dO
-      warp_ab_accum<D>(dk_acc, sdSt + r0 * LDP, sQ);    // dk += dS^T Q
-    }
-  }
-  __syncthreads();
-
-  float* sOut = sSt;
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-    wmma::store_matrix_sync(sOut + r0 * LDO + j * 16, dk_acc[j], LDO, wmma::mem_row_major);
-  __syncwarp();
-  for (int rr = 0; rr < 16; ++rr) {
-    const int k_idx = k0 + r0 + rr;
-    if (k_idx >= T) break;
-    bf16* row = dk + ((size_t)bhk * T + k_idx) * D;
-    for (int c = lane; c < D; c += 32)
-      row[c] = __float2bfloat16(sOut[(r0 + rr) * LDO + c] * scale);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-    wmma::store_matrix_sync(sOut + r0 * LDO + j * 16, dv_acc[j], LDO, wmma::mem_row_major);
-  __syncwarp();
-  for (int rr = 0; rr < 16; ++rr) {
-    const int k_idx = k0 + r0 + rr;
-    if (k_idx >= T) break;
-    bf16* row = dv + ((size_t)bhk * T + k_idx) * D;
-    for (int c = lane; c < D; c += 32) row[c] = __float2bfloat16(sOut[(r0 + rr) * LDO + c]);
-  }
-}
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
 
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
@@ -472,13 +676,16 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
                int Hkv, int T, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t e;
+  if ((e = hopper::tmap_rows_bf16(&tq, q, B * H, T, D, FWD_BQ)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tk, k, B * Hkv, T, D, FWD_BK)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tv, v, B * Hkv, T, D, FWD_BK)) != cudaSuccess) return (int)e;
   const size_t smem = FwdSmem<D>::kBytes;
-  cudaError_t e = prepare(flash_fwd_kernel<D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((T + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, H, Hkv, T, causal,
-      scale);
+  if ((e = prepare(flash_fwd_kernel<D>, smem)) != cudaSuccess) return (int)e;
+  dim3 grid((T + FWD_BQ - 1) / FWD_BQ, B * H);
+  flash_fwd_kernel<D><<<grid, WG_CTA, smem, stream>>>(tq, tk, tv, (bf16*)o, (float*)lse, H, Hkv,
+                                                      T, causal, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -500,13 +707,32 @@ template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int B, int H, int Hkv, int T, int causal,
                float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t e;
+  if ((e = hopper::tmap_rows_bf16(&tq, q, B * H, T, D, DKV_BQ)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tdo, dout, B * H, T, D, DKV_BQ)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tk, k, B * Hkv, T, D, DKV_BK)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tv, v, B * Hkv, T, D, DKV_BK)) != cudaSuccess) return (int)e;
   const size_t smem = DkvSmem<D>::kBytes;
-  cudaError_t e = prepare(flash_bwd_dkv_kernel<D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((T + BK - 1) / BK, B * Hkv);
-  flash_bwd_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dk, (bf16*)dv, H, Hkv, T, causal, scale);
+  if ((e = prepare(flash_bwd_dkv_kernel<D>, smem)) != cudaSuccess) return (int)e;
+  dim3 grid((T + DKV_BK - 1) / DKV_BK, B * Hkv);
+  flash_bwd_dkv_kernel<D><<<grid, WG_CTA, smem, stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, H, Hkv, T,
+      causal, scale, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+template <int N, int D>
+int launch_probe(const void* a, const void* b, const void* v, void* s, void* o,
+                 cudaStream_t stream) {
+  CUtensorMap ta, tb, tv;
+  cudaError_t e;
+  if ((e = hopper::tmap_rows_bf16(&ta, a, 1, 64, D, 64)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tb, b, 1, N, D, N)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tv, v, 1, N, D, N)) != cudaSuccess) return (int)e;
+  const size_t smem = 1024 + (64 + 2 * N) * D * 2 + 8;
+  if ((e = prepare(wgmma_probe_kernel<N, D>, smem)) != cudaSuccess) return (int)e;
+  wgmma_probe_kernel<N, D><<<1, WG_THREADS, smem, stream>>>(ta, tb, tv, (float*)s, (float*)o);
   return (int)cudaGetLastError();
 }
 
@@ -540,6 +766,18 @@ int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* 
     return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, T, causal, scale, s);
   if (D == 128)
     return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, T, causal, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// S = A.B^T (f32 [64, N]) and O = bf16(S).V (f32 [64, D]) through the wgmma
+// operand paths of K1 and K3; a [64, D], b and v [N, D] bf16
+int wgmma_probe_bf16(const void* a, const void* b, const void* v, void* s, void* o, int N, int D,
+                     void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N == 64 && D == 64) return launch_probe<64, 64>(a, b, v, s, o, st);
+  if (N == 64 && D == 128) return launch_probe<64, 128>(a, b, v, s, o, st);
+  if (N == 128 && D == 64) return launch_probe<128, 64>(a, b, v, s, o, st);
+  if (N == 128 && D == 128) return launch_probe<128, 128>(a, b, v, s, o, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -32,9 +32,15 @@ from mpi_operator_tpu_torch.kernels import _build
 
 _NEG_INF = -1e30
 
-# The CUDA kernels' compiled tile (BQ = BK in csrc/flash_attention.cu). The
+# The tiles the CUDA kernels are compiled at (csrc/flash_attention.cu); the
 # TPU defaults of 1024 were sized for VMEM and do not carry over.
-BLOCK = 64
+# K1: a CTA takes 128 q rows (two warpgroups of 64) and walks k tiles of 128.
+# The plain K1 walks the same tiles by default: the per-row online softmax
+# depends only on the k tiling, so it is then the kernel's exact arithmetic.
+# (K2's 64 x 64 and K3's 128 k rows x 64 q rows have no knob: their plain
+# versions are untiled, and the sums differ from the kernels' in f32 order only.)
+BLOCK_Q = 128
+BLOCK_K = 128
 HEAD_DIMS = (64, 128)
 
 # Launches per kernel, counted by each wrapper right after its kernel was
@@ -72,7 +78,7 @@ def _causal_first_q_tile(ki, bq: int, bk: int):
 
 
 def flash_fwd_plain(
-    q, k, v, causal: bool, scale: float, block_q: int = BLOCK, block_k: int = BLOCK
+    q, k, v, causal: bool, scale: float, block_q: int = BLOCK_Q, block_k: int = BLOCK_K
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1's plain version. q [B,H,T,D], k/v [B,Hkv,T,D] → (o [B,H,T,D] in
     q's dtype, lse [B,H,T] f32). Walks the kernel's tiles: per q tile, an
@@ -167,6 +173,7 @@ _SIGNATURES = {
     "flash_fwd_bf16": [_P] * 5 + [_I] * 6 + [_F, _P],
     "flash_bwd_dq_bf16": [_P] * 7 + [_I] * 6 + [_F, _P],
     "flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "wgmma_probe_bf16": [_P] * 5 + [_I] * 2 + [_P],
 }
 
 
@@ -291,6 +298,31 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
     return dk, dv
 
 
+def wgmma_probe_cuda(a, b, v):
+    """The wgmma operand paths K1 and K3 are built from, on their own: S = A·Bᵀ
+    (both K-major from TMA tiles) and O = bf16(S)·V (S the register A operand
+    in place, V read MN-major), both f32. a [64, D], b and v [N, D] bf16 on the
+    card, N and D in (64, 128). For the card tests; counts no launch."""
+    n, d = b.shape
+    if a.dtype != torch.bfloat16 or b.dtype != a.dtype or v.dtype != a.dtype:
+        raise ValueError("the probe takes bf16 operands")
+    if n not in HEAD_DIMS or d not in HEAD_DIMS:
+        raise ValueError(f"the probe takes N and D in {HEAD_DIMS}, got N={n}, D={d}")
+    a = _operand(a, "a", (64, d))
+    b = _operand(b, "b", (n, d))
+    v = _operand(v, "v", (n, d))
+    s = torch.empty(64, n, dtype=torch.float32, device=a.device)
+    o = torch.empty(64, d, dtype=torch.float32, device=a.device)
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        rc = lib.wgmma_probe_bf16(
+            a.data_ptr(), b.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr(), n, d,
+            _stream(a.device),
+        )
+    _check_rc(lib, rc, "wgmma_probe")
+    return s, o
+
+
 # ---------------------------------------------------------------------------
 # dispatch by device
 # ---------------------------------------------------------------------------
@@ -305,13 +337,13 @@ def _on_cuda(x: torch.Tensor) -> bool:
 
 
 def flash_fwd(
-    q, k, v, *, causal: bool, scale: float, block_q: int = BLOCK, block_k: int = BLOCK
+    q, k, v, *, causal: bool, scale: float, block_q: int = BLOCK_Q, block_k: int = BLOCK_K
 ):
     """K1 on CUDA tensors, its plain version on CPU tensors."""
     if _on_cuda(q):
-        if (block_q, block_k) != (BLOCK, BLOCK):
+        if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
             raise ValueError(
-                f"the CUDA kernels' tiles are {BLOCK}x{BLOCK}; got {block_q}x{block_k}"
+                f"the CUDA kernel's tiles are {BLOCK_Q}x{BLOCK_K}; got {block_q}x{block_k}"
             )
         return flash_fwd_cuda(q, k, v, causal, scale)
     return flash_fwd_plain(q, k, v, causal, scale, block_q=block_q, block_k=block_k)
@@ -362,16 +394,17 @@ def flash_attention(
     *,
     causal: bool = True,
     scale: Optional[float] = None,
-    block_q: int = BLOCK,
-    block_k: int = BLOCK,
+    block_q: int = BLOCK_Q,
+    block_k: int = BLOCK_K,
     layout: str = "bthd",
 ):
     """Flash attention in model layout q [B,T,H,D], k/v [B,T,Hkv,D] or, with
     ``layout="bhtd"``, in the kernels' heads-major layout. Differentiable.
 
-    CUDA tensors run the kernels, whose tiles are compiled at ``BLOCK``: a
-    different ``block_q``/``block_k`` raises there. CPU tensors run the
-    plain versions, which walk the same tiles (``block_q`` × ``block_k``)."""
+    CUDA tensors run the kernels; K1's tiles are compiled at ``BLOCK_Q`` ×
+    ``BLOCK_K``, and a different ``block_q``/``block_k`` raises there. CPU
+    tensors run the plain versions, which walk the same tiles (``block_q`` ×
+    ``block_k``)."""
     if layout not in ("bthd", "bhtd"):
         raise ValueError(f"layout={layout!r}; expected bthd|bhtd")
     if scale is None:

@@ -41,14 +41,14 @@ def _row_err(got, ref):
     return float(((g - r).pow(2).mean(-1).sqrt() / row_rms).max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [64, 128])
-def test_cuda_kernels_match_plain(causal, d):
-    """K1, K2 and K3 with ragged T (200) and GQA (8 q heads on 2 kv heads)."""
+def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU or interpret mode")
-    q, k, v, do = _inputs(5, 2, 200, 8, 2, d)
+
+
+def _check_against_plain(seed, b, t, h, h_kv, d, causal):
+    """K1, K2 and K3 against their plain versions on one input."""
+    q, k, v, do = _inputs(seed, b, t, h, h_kv, d)
     scale = d ** -0.5
     o, lse = tfa.flash_fwd_cuda(q, k, v, causal, scale)
     o_ref, lse_ref = tfa.flash_fwd_plain(q, k, v, causal, scale)
@@ -66,10 +66,76 @@ def test_cuda_kernels_match_plain(causal, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_kernels_match_plain(causal, d):
+    """K1, K2 and K3 with ragged T (200) and GQA (8 q heads on 2 kv heads)."""
+    _need_card()
+    _check_against_plain(5, 2, 200, 8, 2, d, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize(
+    "t,h,h_kv",
+    [
+        (17, 8, 2),    # T shorter than one tile
+        (129, 8, 2),   # T one past a tile boundary
+        (129, 4, 4),   # MHA, g = 1
+        (200, 8, 1),   # g = 8
+    ],
+)
+def test_cuda_kernels_edge_shapes(t, h, h_kv, d, causal):
+    """K1's 128 x 128 and K3's 128 x 64 tiles at the edges of T and of the
+    q-head group."""
+    _need_card()
+    _check_against_plain(6, 1, t, h, h_kv, d, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("d", [64, 128])
+def test_wgmma_operand_layouts(n, d):
+    """The wgmma paths K1 and K3 are built from, against plain products: S =
+    A·Bᵀ with both operands K-major in 128B-swizzled TMA tiles (two column
+    blocks at D128), then O = bf16(S)·V with S's f32 accumulator used in
+    place as the register A operand and V read MN-major. A wrong descriptor
+    or fragment mapping moves whole rows or columns, far past these bounds."""
+    _need_card()
+    rng = np.random.default_rng(n * 1000 + d)
+    a, b, v = (
+        torch.from_numpy(rng.standard_normal(s, np.float32)).to(torch.bfloat16).cuda()
+        for s in ((64, d), (n, d), (n, d))
+    )
+    s, o = tfa.wgmma_probe_cuda(a, b, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, a.float() @ b.float().T, atol=1e-3, rtol=1e-4)
+    o_ref = s.to(torch.bfloat16).float() @ v.float()
+    torch.testing.assert_close(o, o_ref, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_k1_k3_bitwise_deterministic(d):
+    """No atomics: two launches on the same inputs give the same bits."""
+    _need_card()
+    q, k, v, do = _inputs(8, 2, 300, 8, 2, d)
+    scale = d ** -0.5
+    o1, lse1 = tfa.flash_fwd_cuda(q, k, v, True, scale)
+    o2, lse2 = tfa.flash_fwd_cuda(q, k, v, True, scale)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    delta = (do.float() * o1.float()).sum(-1)
+    args = (q, k, v, do, lse1, delta, True, scale)
+    dk1, dv1 = tfa.flash_bwd_dkv_cuda(*args)
+    dk2, dv2 = tfa.flash_bwd_dkv_cuda(*args)
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_checks_run_before_any_launch():
     """Unsupported inputs raise before the kernel is launched or counted."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+    _need_card()
     tfa.reset_launches()
     x = torch.zeros(1, 2, 8, 64, device="cuda")
     with pytest.raises(ValueError, match="bf16"):

@@ -10,6 +10,9 @@ port sums K3's group in f32, the Pallas wrapper sums bf16 partials).
 """
 
 import importlib
+import inspect
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -65,22 +68,31 @@ def _close(got, want, tol):
         (True, "f32", 64, 4, 4, 32),  # MHA, T a block multiple
         (True, "bf16", 96, 4, 2, 64),
         (False, "bf16", 96, 4, 2, 64),
+        # the CUDA K1's tiles (128 x 128), two q tiles, ragged T
+        (True, "f32", 200, 4, 2, (128, 128)),
+        (False, "f32", 200, 4, 2, (128, 128)),
+        (True, "bf16", 200, 4, 2, (128, 128)),
+        # block_q = 2 * block_k: a q tile spans two k tiles of the causal bound
+        (True, "f32", 200, 4, 2, (128, 64)),
+        (True, "f32", 129, 4, 4, (128, 64)),
+        (False, "bf16", 200, 8, 1, (128, 64)),
     ],
 )
 def test_plain_kernels_match_pallas(causal, dtype, t, h, h_kv, block):
+    block_q, block_k = block if isinstance(block, tuple) else (block, block)
     jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
     q, k, v, do = _arrays(0, 1, t, h, h_kv, 16)
     scale = 16 ** -0.5
     jq, jk, jv, jdo = (_jax(x, jdt) for x in (q, k, v, do))
     jo, jlse = jfa._flash_fwd(
-        jq, jk, jv, causal=causal, scale=scale, block_q=block, block_k=block, interpret=True
+        jq, jk, jv, causal=causal, scale=scale, block_q=block_q, block_k=block_k, interpret=True
     )
     jdq, jdk, jdv = jfa._flash_bwd(
         jq, jk, jv, jo, jlse, jdo, causal=causal, scale=scale,
-        block_q=block, block_k=block, interpret=True,
+        block_q=block_q, block_k=block_k, interpret=True,
     )
     tq, tk, tv, tdo = (_torch(x, tdt) for x in (q, k, v, do))
-    o, lse = tfa.flash_fwd_plain(tq, tk, tv, causal, scale, block_q=block, block_k=block)
+    o, lse = tfa.flash_fwd_plain(tq, tk, tv, causal, scale, block_q=block_q, block_k=block_k)
     assert o.dtype == tdt and lse.dtype == torch.float32 and lse.shape == (1, h, t)
     fwd_tol = F32_FWD if dtype == "f32" else BF16
     _close(o, jo, fwd_tol)
@@ -169,6 +181,26 @@ def test_causal_tile_algebra_matches_jax():
                 assert tfa._causal_open(qi, ki, bq, bk) == jfa._causal_open(qi, ki, bq, bk)
         for ki in range(8):
             assert tfa._causal_first_q_tile(ki, bq, bk) == jfa._causal_first_q_tile(ki, bq, bk)
+
+
+def _compiled_constants():
+    """The tile constants the CUDA source is compiled at."""
+    src = os.path.join(os.path.dirname(tfa.__file__), "csrc", "flash_attention.cu")
+    with open(src) as f:
+        text = f.read()
+    return {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+def test_defaults_are_the_compiled_tiles():
+    """flash_fwd, flash_attention and the plain K1 default to the tiles the
+    CUDA K1 is compiled at, so the plain K1 walks K1's k tiles and is its
+    exact arithmetic reference."""
+    c = _compiled_constants()
+    assert (tfa.BLOCK_Q, tfa.BLOCK_K) == (c["FWD_BQ"], c["FWD_BK"]) == (128, 128)
+    for fn in (tfa.flash_fwd, tfa.flash_fwd_plain, tfa.flash_attention):
+        params = inspect.signature(fn).parameters
+        assert params["block_q"].default == c["FWD_BQ"], fn.__name__
+        assert params["block_k"].default == c["FWD_BK"], fn.__name__
 
 
 def test_wrappers_refuse_other_devices_and_bad_layout():
