@@ -18,7 +18,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    of T is zero. Then each kernel, its plain version and PyTorch's
    ``scaled_dot_product_attention`` (the yardstick, never on the port's
    path) timed with CUDA events at the model shape, with each kernel's
-   TFLOP/s and share of its bound;
+   TFLOP/s and share of its bound; SDPA's backward alone (dq, dk and dv in
+   one call) is the yardstick of the K2 + K3 pair;
 4. reference: a small Llama (head_dim 64, so the kernels take it) on the
    card against the same weights on the CPU, where the plain versions run:
    loss and gradient norm agree;
@@ -302,10 +303,17 @@ def phase_timing(smi: str) -> dict:
                 f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), sdpa "
                 f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} [{smi}]")
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k_x, v_x))
+    # SDPA's backward alone: its forward runs once, outside the timed window
+    o_sdpa = sdpa(qg, kg, vg, is_causal=True, scale=scale)
+    sdpa_bwd = _time_ms(lambda: torch.autograd.grad(o_sdpa, (qg, kg, vg), do, retain_graph=True))
+    del o_sdpa
+    dq_ms, dkv_ms = out["flash_bwd_dq"]["ms"], out["flash_bwd_dkv"]["ms"]
+    log(f"[timing] bwd {MODEL_SHAPE} causal: K2 + K3 {dq_ms + dkv_ms:.4f} ms (K2 {dq_ms:.4f}, "
+        f"K3 {dkv_ms:.4f}), sdpa backward alone {sdpa_bwd:.4f} ms (dq, dk, dv of the MHA "
+        f"form) [{smi}]")
 
     def sdpa_fwd_bwd():
-        o_ = torch.nn.functional.scaled_dot_product_attention(
-            qg, kg, vg, is_causal=True, scale=scale)
+        o_ = sdpa(qg, kg, vg, is_causal=True, scale=scale)
         torch.autograd.grad(o_, (qg, kg, vg), do)
 
     qf, kf, vf = (x.clone().requires_grad_() for x in (q, k, v))

@@ -12,17 +12,16 @@
 // above the H100's ~295 FLOP/byte ridge, so the tensor cores are the limit,
 // and the one road to their rate is wgmma fed by TMA.
 //
-// K1 and K3 are built on Hopper's warpgroup MMA (hopper.cuh): two consumer
+// All three are built on Hopper's warpgroup MMA (hopper.cuh): two consumer
 // warpgroups of 64 rows each per CTA, every accumulator in registers, tiles
 // brought by TMA (128-byte swizzle, started by thread 0) into a 2-stage ring
 // whose "full" mbarriers count the bytes in, so the next tile's copy
 // overlaps this tile's products. A stage is refilled once both warpgroups
-// are done with it: K1 counts that on "empty" mbarriers, K3 has a CTA
-// barrier per tile anyway (for lse/delta) and refills after it. Scores and probabilities never touch shared memory: an
-// m64nN f32 accumulator maps in place onto the bf16 register A operand of
-// the next product (hopper::acc_to_a).
-// K2 is the first design still: 64x64 tiles, four warps of 16 rows each,
-// nvcuda::wmma 16x16x16 on tiles staged in padded shared memory.
+// are done with it: K1 and K2 count that on "empty" mbarriers, K3 has a CTA
+// barrier per tile anyway (for lse/delta) and refills after it. Scores,
+// probabilities and dS never touch shared memory: an m64nN f32 accumulator
+// maps in place onto the bf16 register A operand of the next product
+// (hopper::acc_to_a).
 //
 // Design notes against the TPU kernels:
 // - The TPU grid runs in order and carries (acc, m, l) in VMEM scratch across
@@ -31,15 +30,15 @@
 // - Causal tile skipping is a loop bound from the same algebra as
 //   _causal_last_k_tile / _causal_first_q_tile, not a clamp of an index map;
 //   the heaviest tiles are scheduled first.
-// - The TPU wrappers zero-pad T to block multiples. Here K1/K3 read through
-//   3-D tensor maps (D, T, B*heads), so TMA zero-fills rows past T instead of
-//   reading the next head, and K2's loads zero-fill likewise; the score mask
-//   (k < T, q < T) keeps them out, and rows past T are never stored.
+// - The TPU wrappers zero-pad T to block multiples. Here every tile comes
+//   through a 3-D tensor map (D, T, B*heads), so TMA zero-fills rows past T
+//   instead of reading the next head; the score mask (k < T) keeps them out,
+//   and rows past T are never stored.
 // - K3 loops over the g q-heads of a kv head inside the CTA and sums their
 //   dk/dv in f32 registers: no per-q-head [B,H,T,D] partials, no atomics.
 // - Rounding points match the TPU kernels: P is rounded to bf16 before P.V,
 //   dS to bf16 before its products, dq/dk scaled by `scale` when emitted.
-//   K1 and K3 take exp as exp2 with scale*log2(e) folded into one multiply
+//   All three take exp as exp2 with scale*log2(e) folded into one multiply
 //   (the plain versions use exp; the two differ by f32 rounding only).
 //
 // Plain C interface (loaded with ctypes): every launcher returns
@@ -49,12 +48,10 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -81,15 +78,13 @@ __device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
   return raw + ((1024u - (hopper::smem_u32(raw) & 1023u)) & 1023u);
 }
 
-// ---------------------------------------------------------------------------
-// K1 and K3: wgmma + TMA
-// ---------------------------------------------------------------------------
-
 constexpr int WG_THREADS = 128;          // one warpgroup
 constexpr int WG_CTA = 2 * WG_THREADS;   // two consumer warpgroups per CTA
 
 constexpr int FWD_BQ = 128;  // K1: q rows per CTA, 64 per warpgroup
 constexpr int FWD_BK = 128;  // K1: k rows per stage of the ring
+constexpr int DQ_BQ = 128;   // K2: q rows per CTA, 64 per warpgroup
+constexpr int DQ_BK = 64;    // K2: k rows per stage of the ring
 constexpr int DKV_BK = 128;  // K3: k rows per CTA, 64 per warpgroup
 constexpr int DKV_BQ = 64;   // K3: q rows per stage of the ring
 
@@ -253,6 +248,173 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (row + 8 * r < T) lse[(size_t)bh * T + row + 8 * r] = m[r] * LN2 + logf(l[r]);
+  }
+}
+
+template <int D> struct DqSmem {
+  static constexpr int kQ = DQ_BQ * D * 2;   // a Q or dO tile, bytes
+  static constexpr int kKV = DQ_BK * D * 2;  // one K or V tile
+  static constexpr int kStage = 2 * kKV;     // K then V
+  static constexpr size_t kBytes = 1024 + 2 * kQ + 2 * kStage + 8 * 8;
+};
+
+// K2, replacing _bwd_dq_kernel: dq = scale * sum_k bf16(dS).K, with P
+// recomputed from lse. Bound by operations: three products of 2*D FLOP per
+// (q, k) pair (S = Q.K^T, dP = dO.V^T, dQ += dS.K), a causal row of T/2
+// pairs against the 6*D bytes of its q, dO and dq, so 0.1043 ms of tensor
+// core time at the Llama shape. So every product is a wgmma fed by TMA, and
+// nothing of S, P, dP or dS goes through shared memory.
+// CTA (q tile of 128 rows, b*h); warpgroup w owns q rows 64w..64w+63, gets
+// Q and dO once, and walks k tiles of 64 rows (K and V) through the ring.
+// S and dP (m64n64, both operands K-major in shared memory) are issued back
+// to back; P = exp2(S*scale*log2e - lse*log2e) is formed while dP is still
+// in flight, then dS = P*(dP - delta) is rounded to bf16 in place as the
+// register A operand of dQ += dS.K (m64nD, K read MN-major). 64 k rows and
+// not K1's 128 keep dQ (D/2 f32), S, dP and the dS fragments within the
+// register file. lse and delta are fixed for the CTA: each thread reads its
+// two rows from global memory once (no TMA box, which must start 16-byte
+// aligned, and no shared slot). Causal: warpgroup 0's rows end one k tile
+// before the CTA's bound, so it leaves the loop a tile early.
+template <int D>
+__global__ void __launch_bounds__(WG_CTA, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int H, int Hkv, int T, int causal, float scale,
+                    float scale_log2) {
+  using L = DqSmem<D>;
+  constexpr int NC = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sdO = reinterpret_cast<bf16*>(smem + L::kQ);
+  unsigned char* ring = smem + 2 * L::kQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + 2 * L::kStage);  // [2] tile landed
+  uint64_t* empty = full + 2;  // [2] all 8 warps done with the stage
+  uint64_t* qbar = full + 4;
+
+  const int qi = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int bhk = b * Hkv + h / (H / Hkv);
+  const int q0 = qi * DQ_BQ;
+  const int n_kb = (T + DQ_BK - 1) / DQ_BK;
+  const int k_end = causal ? min(n_kb, causal_last_k_tile<DQ_BQ, DQ_BK>(qi) + 1) : n_kb;
+  const int tid = threadIdx.x, wg = tid / WG_THREADS, lane = tid % 32;
+  const int wg_end = causal ? min(k_end, causal_last_k_tile<64, DQ_BK>(2 * qi + wg) + 1) : k_end;
+  const int warp_row = wg * 64 + (tid % WG_THREADS) / 32 * 16;  // warp's first row in the tile
+  const int row = q0 + warp_row + lane / 4;  // q of accumulator registers i with i % 4 < 2; +8 else
+
+  auto stage_k = [&](int s) { return reinterpret_cast<bf16*>(ring + s * L::kStage); };
+  auto stage_v = [&](int s) { return reinterpret_cast<bf16*>(ring + s * L::kStage + L::kKV); };
+  auto load_kv = [&](int j) {
+    const int s = j & 1;
+    hopper::mbar_expect_tx(&full[s], L::kStage);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      hopper::tma_load_3d(stage_k(s) + c * DQ_BK * 64, &tm_k, &full[s], c * 64, j * DQ_BK, bhk);
+      hopper::tma_load_3d(stage_v(s) + c * DQ_BK * 64, &tm_v, &full[s], c * 64, j * DQ_BK, bhk);
+    }
+  };
+
+  if (tid == 0) {
+    hopper::mbar_init(&full[0], 1);
+    hopper::mbar_init(&full[1], 1);
+    hopper::mbar_init(&empty[0], 2 * WG_THREADS / 32);
+    hopper::mbar_init(&empty[1], 2 * WG_THREADS / 32);
+    hopper::mbar_init(qbar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(qbar, 2 * L::kQ);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      hopper::tma_load_3d(sQ + c * DQ_BQ * 64, &tm_q, qbar, c * 64, q0, bh);
+      hopper::tma_load_3d(sdO + c * DQ_BQ * 64, &tm_do, qbar, c * 64, q0, bh);
+    }
+    load_kv(0);
+    if (k_end > 1) load_kv(1);
+  }
+
+  // lse (in log2 units) and delta of rows row, row + 8; 0 past T, where Q
+  // and dO are zero too, so dS = 0 there
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = row + 8 * r;
+    lse2[r] = q < T ? lse[(size_t)bh * T + q] * LOG2E : 0.f;
+    dlt[r] = q < T ? delta[(size_t)bh * T + q] : 0.f;
+  }
+  float acc_dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dq[i] = 0.f;
+  const bf16* sQw = sQ + wg * 64 * 64;  // this warpgroup's rows in each column block
+  const bf16* sdOw = sdO + wg * 64 * 64;
+  hopper::mbar_wait(qbar, 0);
+
+  for (int j = 0; j < wg_end; ++j) {
+    const int s = j & 1;
+    hopper::mbar_wait(&full[s], (j >> 1) & 1);
+    float acc_s[DQ_BK / 2], acc_dp[DQ_BK / 2];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Wgmma<DQ_BK>::ss(acc_s, hopper::desc_k_major<DQ_BQ>(sQw, kk),
+                               hopper::desc_k_major<DQ_BK>(stage_k(s), kk), kk > 0);
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Wgmma<DQ_BK>::ss(acc_dp, hopper::desc_k_major<DQ_BQ>(sdOw, kk),
+                               hopper::desc_k_major<DQ_BK>(stage_v(s), kk), kk > 0);
+    hopper::wgmma_commit();
+    // while S and dP compute: refill the stage of tile j-1 with tile j+1
+    // once both warpgroups have released it
+    if (tid == 0 && j >= 1 && j + 1 < k_end) {
+      hopper::mbar_wait(&empty[(j - 1) & 1], ((j - 1) >> 1) & 1);
+      load_kv(j + 1);
+    }
+    __syncwarp();
+
+    const int k0 = j * DQ_BK;
+    const bool mask = k0 + DQ_BK > T || (causal && k0 + DQ_BK - 1 > q0 + warp_row);
+    hopper::wgmma_wait<1>();  // S is in
+    hopper::fence_regs(acc_s);
+#pragma unroll
+    for (int i = 0; i < DQ_BK / 2; ++i) {
+      float p = exp2f(fmaf(acc_s[i], scale_log2, -lse2[(i / 2) % 2]));
+      if (mask) {
+        const int col = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        if (col >= T || (causal && col > row + 8 * ((i / 2) % 2))) p = 0.f;
+      }
+      acc_s[i] = p;
+    }
+    hopper::wgmma_wait<0>();  // dP is in
+    hopper::fence_regs(acc_dp);
+#pragma unroll
+    for (int i = 0; i < DQ_BK / 2; ++i) acc_dp[i] = acc_s[i] * (acc_dp[i] - dlt[(i / 2) % 2]);
+    uint32_t a_ds[DQ_BK / 16][4];
+    hopper::acc_to_a(acc_dp, a_ds);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DQ_BK / 16; ++kk)
+      hopper::Wgmma<D>::template rs<1>(acc_dq, a_ds[kk], hopper::desc_mn_major<DQ_BK>(stage_k(s), kk),
+                                       1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc_dq);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int r = row + 8 * ((i / 2) % 2);
+    if (r < T) {
+      const int col = 8 * (i / 4) + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(dq + ((size_t)bh * T + r) * D + col) =
+          __floats2bfloat162_rn(acc_dq[i] * scale, acc_dq[i + 1] * scale);
+    }
   }
 }
 
@@ -433,7 +595,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
 // Layout probe for the card tests: one warpgroup computes S = A.B^T (A [64,D]
 // and B [N,D] K-major from TMA tiles) and O = bf16(S).V (V [N,D] read
 // MN-major, bf16(S) the register A operand in place), the two operand paths
-// K1 and K3 are built from. S and O are written in f32.
+// K1-K3 are built from. S and O are written in f32.
 template <int N, int D>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wgmma_probe_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
@@ -492,179 +654,6 @@ wgmma_probe_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_consta
 }
 
 // ---------------------------------------------------------------------------
-// K2: wmma (first design)
-// ---------------------------------------------------------------------------
-
-constexpr int BQ = 64;           // K2: q rows per tile
-constexpr int BK = 64;           // K2: k rows per tile
-constexpr int NWARPS = 4;        // each warp owns 16 rows of a 64-row tile
-constexpr int NTHREADS = NWARPS * 32;
-
-// Padded shared-memory row strides (elements). The pads break the 2-way..8-way
-// bank conflicts of 128/256-byte rows and keep every 16-row tile start
-// 32-byte aligned, as wmma::load_matrix_sync requires.
-template <int D> struct Ld {
-  static constexpr int kBf16Tile = D + 8;   // bf16 [rows, D] tiles
-  static constexpr int kF32Tile = D + 4;    // f32 [rows, D] staging
-};
-constexpr int LDP = BK + 8;                  // bf16 [64, 64] tiles (dS)
-constexpr int LDS = BK + 4;                  // f32 [64, 64] tiles (S, dP)
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// Copy rows [row0, row0+ROWS) of a contiguous [T, D] bf16 matrix into a padded
-// shared tile, 16 bytes per thread per step; rows at or past T are zero-filled
-// (their contents would otherwise be whatever lies beyond the tensor).
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src,
-                                          int row0, int T) {
-  constexpr int VEC = 8;
-  constexpr int PER_ROW = D / VEC;
-  constexpr int LD = Ld<D>::kBf16Tile;
-  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += NTHREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < T) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// rows [row0, row0+64) of a [T] f32 vector, 0 past T
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* __restrict__ src,
-                                              int row0, int T) {
-  for (int i = threadIdx.x; i < BQ; i += NTHREADS) dst[i] = (row0 + i < T) ? src[row0 + i] : 0.f;
-}
-
-// out[16 x 64] (f32, ldm LDS) = A[16 rows at a, D wide] . B[64 rows at b, D wide]^T
-template <int D>
-__device__ __forceinline__ void warp_abt(float* out, const bf16* a, const bf16* b) {
-  constexpr int LD = Ld<D>::kBf16Tile;
-  FragC acc[BK / 16];
-#pragma unroll
-  for (int j = 0; j < BK / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk, LD);
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      FragBCol fb;  // B^T read column-major straight from the row-major tile
-      wmma::load_matrix_sync(fb, b + j * 16 * LD + kk, LD);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < BK / 16; ++j)
-    wmma::store_matrix_sync(out + j * 16, acc[j], LDS, wmma::mem_row_major);
-}
-
-// acc[j] (16 x 16 column block j of a 16 x D result) += A[16 x 64 at a, ldm LDP] . B[64 x D]
-template <int D>
-__device__ __forceinline__ void warp_ab_accum(FragC* acc, const bf16* a, const bf16* b) {
-  constexpr int LD = Ld<D>::kBf16Tile;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk, LDP);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      FragBRow fb;
-      wmma::load_matrix_sync(fb, b + kk * LD + j * 16, LD);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-}
-
-template <int D> struct DqSmem {
-  static constexpr size_t kBytes =
-      4 * (size_t)BQ * Ld<D>::kBf16Tile * sizeof(bf16)   // Q, dO, K, V
-      + (size_t)BQ * LDP * sizeof(bf16)                  // dS
-      + 2 * (size_t)BQ * LDS * sizeof(float)             // S, dP (then dq staging)
-      + 2 * (size_t)BQ * sizeof(float);                  // lse, delta
-};
-
-// K2. Block (q-tile, b*h): dq = scale * sum_k dS.K with P recomputed from lse.
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int H, int Hkv, int T, int causal, float scale) {
-  constexpr int LD = Ld<D>::kBf16Tile;
-  constexpr int LDO = Ld<D>::kF32Tile;
-  static_assert(BQ * LDO <= 2 * BQ * LDS, "dq staging must fit in the S/dP area");
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + BQ * LD;
-  bf16* sK = sdO + BQ * LD;
-  bf16* sV = sK + BK * LD;
-  bf16* sdS = sV + BK * LD;
-  float* sS = reinterpret_cast<float*>(sdS + BQ * LDP);
-  float* sdP = sS + BQ * LDS;
-  float* sLse = sdP + BQ * LDS;
-  float* sDelta = sLse + BQ;
-
-  const int qi = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const bf16* kp = k + (size_t)(b * Hkv + hk) * T * D;
-  const bf16* vp = v + (size_t)(b * Hkv + hk) * T * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-  const int q0 = qi * BQ;
-
-  load_tile<D, BQ>(sQ, q + (size_t)bh * T * D, q0, T);
-  load_tile<D, BQ>(sdO, dout + (size_t)bh * T * D, q0, T);
-  load_rows_f32(sLse, lse + (size_t)bh * T, q0, T);
-  load_rows_f32(sDelta, delta + (size_t)bh * T, q0, T);
-
-  FragC acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  const int n_kb = (T + BK - 1) / BK;
-  const int k_end = causal ? min(n_kb, causal_last_k_tile<BQ, BK>(qi) + 1) : n_kb;
-  for (int ki = 0; ki < k_end; ++ki) {
-    __syncthreads();
-    load_tile<D, BK>(sK, kp, ki * BK, T);
-    load_tile<D, BK>(sV, vp, ki * BK, T);
-    __syncthreads();
-
-    warp_abt<D>(sS + r0 * LDS, sQ + r0 * LD, sK);     // S  = Q K^T
-    warp_abt<D>(sdP + r0 * LDS, sdO + r0 * LD, sV);   // dP = dO V^T
-    __syncwarp();
-    for (int i = lane; i < 16 * BK; i += 32) {
-      const int r = r0 + i / BK, c = i % BK;
-      const int q_idx = q0 + r, k_idx = ki * BK + c;
-      const bool valid = k_idx < T && (!causal || q_idx >= k_idx);
-      const float p = valid ? expf(sS[r * LDS + c] * scale - sLse[r]) : 0.f;
-      sdS[r * LDP + c] = __float2bfloat16(p * (sdP[r * LDS + c] - sDelta[r]));
-    }
-    __syncwarp();
-    warp_ab_accum<D>(acc, sdS + r0 * LDP, sK);        // dq += dS K
-  }
-  __syncthreads();  // the staging area aliases other warps' S/dP rows
-
-  float* sOut = sS;
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-    wmma::store_matrix_sync(sOut + r0 * LDO + j * 16, acc[j], LDO, wmma::mem_row_major);
-  __syncwarp();
-  for (int rr = 0; rr < 16; ++rr) {
-    const int q_idx = q0 + r0 + rr;
-    if (q_idx >= T) break;
-    bf16* row = dq + ((size_t)bh * T + q_idx) * D;
-    for (int c = lane; c < D; c += 32)
-      row[c] = __float2bfloat16(sOut[(r0 + rr) * LDO + c] * scale);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -693,13 +682,18 @@ template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, int B, int H, int Hkv, int T, int causal, float scale,
               cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t e;
+  if ((e = hopper::tmap_rows_bf16(&tq, q, B * H, T, D, DQ_BQ)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tdo, dout, B * H, T, D, DQ_BQ)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tk, k, B * Hkv, T, D, DQ_BK)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tv, v, B * Hkv, T, D, DQ_BK)) != cudaSuccess) return (int)e;
   const size_t smem = DqSmem<D>::kBytes;
-  cudaError_t e = prepare(flash_bwd_dq_kernel<D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((T + BQ - 1) / BQ, B * H);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dq, H, Hkv, T, causal, scale);
+  if ((e = prepare(flash_bwd_dq_kernel<D>, smem)) != cudaSuccess) return (int)e;
+  dim3 grid((T + DQ_BQ - 1) / DQ_BQ, B * H);
+  flash_bwd_dq_kernel<D><<<grid, WG_CTA, smem, stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dq, H, Hkv, T, causal, scale,
+      scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -770,7 +764,7 @@ int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* 
 }
 
 // S = A.B^T (f32 [64, N]) and O = bf16(S).V (f32 [64, D]) through the wgmma
-// operand paths of K1 and K3; a [64, D], b and v [N, D] bf16
+// operand paths of K1-K3; a [64, D], b and v [N, D] bf16
 int wgmma_probe_bf16(const void* a, const void* b, const void* v, void* s, void* o, int N, int D,
                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;

@@ -37,8 +37,9 @@ _NEG_INF = -1e30
 # K1: a CTA takes 128 q rows (two warpgroups of 64) and walks k tiles of 128.
 # The plain K1 walks the same tiles by default: the per-row online softmax
 # depends only on the k tiling, so it is then the kernel's exact arithmetic.
-# (K2's 64 x 64 and K3's 128 k rows x 64 q rows have no knob: their plain
-# versions are untiled, and the sums differ from the kernels' in f32 order only.)
+# (K2's 128 q rows x 64 k rows and K3's 128 k rows x 64 q rows have no knob:
+# their plain versions are untiled, and the sums differ from the kernels' in f32
+# order only.)
 BLOCK_Q = 128
 BLOCK_K = 128
 HEAD_DIMS = (64, 128)
@@ -299,7 +300,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
 
 
 def wgmma_probe_cuda(a, b, v):
-    """The wgmma operand paths K1 and K3 are built from, on their own: S = A·Bᵀ
+    """The wgmma operand paths K1–K3 are built from, on their own: S = A·Bᵀ
     (both K-major from TMA tiles) and O = bf16(S)·V (S the register A operand
     in place, V read MN-major), both f32. a [64, D], b and v [N, D] bf16 on the
     card, N and D in (64, 128). For the card tests; counts no launch."""

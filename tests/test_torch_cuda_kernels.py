@@ -81,14 +81,15 @@ def test_cuda_kernels_match_plain(causal, d):
     "t,h,h_kv",
     [
         (17, 8, 2),    # T shorter than one tile
+        (65, 8, 2),    # T one past K2's first k stage, inside one q tile
         (129, 8, 2),   # T one past a tile boundary
         (129, 4, 4),   # MHA, g = 1
         (200, 8, 1),   # g = 8
     ],
 )
 def test_cuda_kernels_edge_shapes(t, h, h_kv, d, causal):
-    """K1's 128 x 128 and K3's 128 x 64 tiles at the edges of T and of the
-    q-head group."""
+    """K1's 128 x 128, K2's 128 q x 64 k and K3's 128 k x 64 q tiles at the
+    edges of T and of the q-head group."""
     _need_card()
     _check_against_plain(6, 1, t, h, h_kv, d, causal)
 
@@ -97,7 +98,7 @@ def test_cuda_kernels_edge_shapes(t, h, h_kv, d, causal):
 @pytest.mark.parametrize("n", [64, 128])
 @pytest.mark.parametrize("d", [64, 128])
 def test_wgmma_operand_layouts(n, d):
-    """The wgmma paths K1 and K3 are built from, against plain products: S =
+    """The wgmma paths K1–K3 are built from, against plain products: S =
     A·Bᵀ with both operands K-major in 128B-swizzled TMA tiles (two column
     blocks at D128), then O = bf16(S)·V with S's f32 accumulator used in
     place as the register A operand and V read MN-major. A wrong descriptor
@@ -117,8 +118,9 @@ def test_wgmma_operand_layouts(n, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
-def test_cuda_k1_k3_bitwise_deterministic(d):
-    """No atomics: two launches on the same inputs give the same bits."""
+def test_cuda_kernels_bitwise_deterministic(d):
+    """No atomics: two launches of K1, K2 or K3 on the same inputs give the
+    same bits."""
     _need_card()
     q, k, v, do = _inputs(8, 2, 300, 8, 2, d)
     scale = d ** -0.5
@@ -127,6 +129,7 @@ def test_cuda_k1_k3_bitwise_deterministic(d):
     assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
     delta = (do.float() * o1.float()).sum(-1)
     args = (q, k, v, do, lse1, delta, True, scale)
+    assert torch.equal(tfa.flash_bwd_dq_cuda(*args), tfa.flash_bwd_dq_cuda(*args))
     dk1, dv1 = tfa.flash_bwd_dkv_cuda(*args)
     dk2, dv2 = tfa.flash_bwd_dkv_cuda(*args)
     assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
