@@ -25,9 +25,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    loss and gradient norm agree;
 5. main path: ``bench_single_chip()`` (~0.79B params) at seq 2048, batch 4,
    AdamW, through the benchmark entry point ``bench.bench_llama`` (its K1
-   check, then 2 warm-up and 5 timed steps). Every loss is finite and the
-   last is below the first (the batch is fixed), and each kernel's launch
-   count in the training run is above 0.
+   check, then 2 warm-up and 5 timed steps). Every loss is finite, the
+   first and last are the recorded ones (10.9078 and 0.1252 to the printed digits: the
+   batch is fixed), and each kernel launches once per layer per step (84
+   in 7 steps): the per-layer remat saves K1's outputs instead of running
+   K1 again;
+6. gang path: the worker as the operator runs it
+   (``python -m mpi_operator_tpu_torch.workers.llama_worker``, one process
+   per incarnation), ``bench_single_chip()`` at seq 2048, batch 4, on a
+   one-rank NCCL group with ``LLAMA_MESH=fsdp=1`` (FSDP2's DTensor
+   parameters around the kernels): (a) 4 steps, no checkpoint; (b) elastic,
+   a hostfile of 2 hosts: saves at step 2 and exits 75; (c) the same
+   checkpoint dir, a hostfile of 1 host: restores step 2, runs to 4 and
+   exits 0. (b)'s and (c)'s losses equal (a)'s within 1e-6 relative; their
+   step-stats blobs have compute and ckpt seconds; the checkpoint's bytes,
+   save and restore times are printed. The checkpoint (~9.5 GB) goes to a
+   temporary directory in ``$TMPDIR`` or the checkout, whichever has more
+   room; under 3 checkpoints of room the phase fails.
 
 The line before the last is a JSON object with one entry per kernel (its
 registers and spill bytes per head dim from ptxas beside its numbers); the
@@ -39,8 +53,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -60,6 +76,8 @@ CUDA_KERNEL = {  # wrapper -> its __global__ function in CU_SOURCE
     "flash_bwd_dq": "flash_bwd_dq_kernel",
     "flash_bwd_dkv": "flash_bwd_dkv_kernel",
 }
+# the main path's first and last losses as recorded in PERF.md, to the printed digits
+MAIN_FIRST_LOSS, MAIN_LAST_LOSS = 10.9078, 0.1252
 MODEL_SHAPE = (4, 2048, 16, 4, 128)  # B, T, H, Hkv, D of bench_single_chip at seq 2048
 SHAPES = [
     ("gate", (2, 512, 8, 4, 64)),
@@ -383,12 +401,98 @@ def phase_main(smi: str) -> dict:
         fail(f"expected {warmup + steps} losses, got {len(losses)}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite loss on the main path: {losses}")
-    if not losses[-1] < losses[0]:
-        fail(f"the loss did not fall on a fixed batch: {losses}")
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"kernel {name} was not launched on the main path")
+    if round(losses[0], 4) != MAIN_FIRST_LOSS or round(losses[-1], 4) != MAIN_LAST_LOSS:
+        fail(f"the losses moved from {MAIN_FIRST_LOSS} -> {MAIN_LAST_LOSS}: {losses}")
+    want = 12 * (warmup + steps)  # bench_single_chip's 12 layers, once per step each
+    if launches != {name: want for name in REPLACES}:
+        fail(f"expected {want} launches of each kernel on the main path, got {launches}")
     return launches
+
+
+def _worker(env: dict, timeout: float) -> tuple:
+    """One incarnation of the worker as the operator launches it; returns
+    (exit code, its JSON record, wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpi_operator_tpu_torch.workers.llama_worker"],
+        env={**os.environ, **env}, cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=timeout,
+    )
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if not lines or not lines[-1].startswith("{"):
+        fail(f"the worker printed no record (rc {proc.returncode}):\n{proc.stderr[-3000:]}")
+    return proc.returncode, json.loads(lines[-1]), wall
+
+
+def _tree_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_gang(smi: str) -> dict:
+    """The gang path: reference, restart, resume (see the module docstring).
+    Returns each kernel's launches per step in the reference run."""
+    from mpi_operator_tpu_torch.models import llama
+    from mpi_operator_tpu_torch.runtime.stepstats import read_stats
+
+    torch.cuda.empty_cache()
+    ckpt_bytes = 3 * 4 * llama.param_count(llama.bench_single_chip())  # f32 params, mu, nu
+    roots = [tempfile.gettempdir(), os.path.dirname(os.path.abspath(__file__))]
+    frees = {r: shutil.disk_usage(r).free for r in roots}
+    root = max(frees, key=frees.get)
+    log(f"[gang] free bytes {frees}; a checkpoint is ~{ckpt_bytes} bytes")
+    if frees[root] < 3 * ckpt_bytes:
+        fail(f"under 3 checkpoints of free disk: {frees} < {3 * ckpt_bytes}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gang_", dir=root)
+    try:
+        base = {"LLAMA_CONFIG": "bench", "LLAMA_MESH": "fsdp=1", "LLAMA_SEQ": "2048",
+                "LLAMA_BATCH": "4", "LLAMA_STEPS": "4", "LLAMA_SAVE_EVERY": "2",
+                "LLAMA_CHECK_EVERY": "2", "TPUJOB_STEPSTATS_INTERVAL": "0"}
+        rc, ref, wall = _worker(base, timeout=300)
+        log(f"[gang] (a) reference: rc {rc}, {wall:.1f}s, {ref} [{smi}]")
+        if rc != 0 or ref["outcome"] != "done" or len(ref["losses"]) != 4:
+            fail(f"the reference run failed: rc {rc}, {ref}")
+        cfg = os.path.join(tmp, "config")
+        os.makedirs(cfg)
+        elastic = {**base, "LLAMA_CKPT": os.path.join(tmp, "ckpt"), "TPUJOB_CONFIG_DIR": cfg}
+        runs = {}
+        for tag, hosts, want_rc in (("b", 2, 75), ("c", 1, 0)):
+            with open(os.path.join(cfg, "hostfile"), "w") as f:
+                f.write("".join(f"llama-worker-{i} slots=1\n" for i in range(hosts)))
+            stats_path = os.path.join(tmp, f"stats_{tag}.json")
+            rc, rec, wall = _worker({**elastic, "TPUJOB_STEPSTATS_FILE": stats_path},
+                                    timeout=450)
+            stats = read_stats(stats_path) or {}
+            log(f"[gang] ({tag}) hostfile of {hosts}: rc {rc}, {wall:.1f}s, {rec}; "
+                f"stepstats {stats} [{smi}]")
+            if rc != want_rc:
+                fail(f"run ({tag}) exited {rc}, expected {want_rc}")
+            buckets = stats.get("buckets", {})
+            if not (buckets.get("compute", 0) > 0 and buckets.get("ckpt", 0) > 0):
+                fail(f"run ({tag}) has no compute or ckpt seconds in its step stats: {stats}")
+            runs[tag] = (rec, buckets)
+        (b, b_buckets), (c, c_buckets) = runs["b"], runs["c"]
+        if (b["outcome"], b["step"], c["outcome"], c["start_step"], c["step"]) != \
+                ("restart", 2, "done", 2, 4):
+            fail(f"expected a restart at step 2 and a resume from 2 to 4: {b}, {c}")
+        steps = os.path.join(tmp, "ckpt", "2")
+        size = _tree_bytes(steps)
+        rel = max(abs(x - y) / abs(y) for x, y in zip(b["losses"] + c["losses"], ref["losses"]))
+        log(f"[gang] losses: reference {ref['losses']}, restart {b['losses']}, resume "
+            f"{c['losses']}; largest relative difference {rel:.3e} (bound 1e-6)")
+        log(f"[gang] checkpoint of step 2: {size} bytes; save_s {b_buckets['ckpt']:.3f} "
+            f"(the ckpt seconds of run (b): its periodic save and the commit before exit 75), "
+            f"restore_s {c['restore_s']:.3f} [{smi}]")
+        if not rel <= 1e-6:
+            fail(f"the restarted run's losses differ from the reference's: {rel}")
+        per_step = {k: n / 4 for k, n in ref["kernel_launches"].items()}
+        log(f"[gang] kernel launches per step: reference {per_step}, restart "
+            f"{b['kernel_launches']} in 2 steps, resume {c['kernel_launches']} in 2 steps")
+        if per_step != {k: 12.0 for k in REPLACES}:
+            fail(f"expected 12 launches of each kernel per step: {per_step}")
+        return per_step
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> None:
@@ -398,6 +502,7 @@ def main() -> None:
     times = phase_timing(smi)
     phase_reference()
     launches = phase_main(smi)
+    phase_gang(smi)
     kernels = [
         {
             "name": name,

@@ -11,9 +11,11 @@ TPU kernels become three CUDA kernels in ``csrc/flash_attention.cu``:
 - K3 ``flash_bwd_dkv``: dk/dv summed over each kv head's q-head group,
   replacing ``_bwd_dkv_kernel`` and its wrapper's group sum.
 
-Dispatch is by the device of the tensors: a CUDA tensor always goes to the
-kernel (bf16 only; anything the kernel does not take raises), a CPU tensor
-to the plain version. There is no fallback from one to the other.
+Each kernel is a ``torch.library`` operator (``flash_fwd_op``,
+``flash_bwd_dq_op``, ``flash_bwd_dkv_op``), dispatched by the device of
+the tensors: a CUDA tensor always goes to the kernel (bf16 only; anything
+the kernel does not take raises), a CPU tensor to the plain version. There
+is no fallback from one to the other.
 
 Layout: [B, H, T, D] heads-major, k/v at Hkv heads (GQA: q head h reads kv
 head h // (H // Hkv)). lse and delta are [B, H, T] f32 (the TPU kernels'
@@ -29,6 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from mpi_operator_tpu_torch.kernels import _build
+from mpi_operator_tpu_torch.runtime.topology import mesh_sizes
 
 _NEG_INF = -1e30
 
@@ -325,67 +328,124 @@ def wgmma_probe_cuda(a, b, v):
 
 
 # ---------------------------------------------------------------------------
-# dispatch by device
+# the three kernels as operators, dispatched by device
 # ---------------------------------------------------------------------------
+#
+# Each kernel is a ``torch.library`` operator: the CUDA kernel for CUDA
+# tensors, the plain version for CPU tensors, a fake for shapes. An operator
+# is what the dispatcher sees (meta shapes, dispatch modes such as selective
+# checkpointing); a ctypes launch inside an autograd Function is not. The
+# launch counts stay in the CUDA wrappers above. A dispatch through
+# ``torch.library`` costs some microseconds a call on the host.
+
+OPS_NAMESPACE = "mpi_operator_tpu_torch"
 
 
-def _on_cuda(x: torch.Tensor) -> bool:
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"flash attention runs on cuda or cpu tensors, got {x.device}")
+@torch.library.custom_op(
+    f"{OPS_NAMESPACE}::flash_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, float scale, int block_q, "
+           "int block_k) -> (Tensor, Tensor)",
+)
+def flash_fwd_op(q, k, v, causal, scale, block_q, block_k):
+    """K1 → (o, lse); on CPU tensors its plain version."""
+    return flash_fwd_plain(q, k, v, causal, scale, block_q=block_q, block_k=block_k)
+
+
+@flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_kernel(q, k, v, causal, scale, block_q, block_k):
+    if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
+        raise ValueError(
+            f"the CUDA kernel's tiles are {BLOCK_Q}x{BLOCK_K}; got {block_q}x{block_k}"
+        )
+    return flash_fwd_cuda(q, k, v, causal, scale)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale, block_q, block_k):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+_BWD_ARGS = ("(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, Tensor delta, "
+             "bool causal, float scale)")
+
+
+@torch.library.custom_op(
+    f"{OPS_NAMESPACE}::flash_bwd_dq", mutates_args=(), device_types="cpu",
+    schema=f"{_BWD_ARGS} -> Tensor",
+)
+def flash_bwd_dq_op(q, k, v, do, lse, delta, causal, scale):
+    """K2 → dq; on CPU tensors its plain version."""
+    return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
+
+
+flash_bwd_dq_op.register_kernel("cuda")(flash_bwd_dq_cuda)
+
+
+@flash_bwd_dq_op.register_fake
+def _flash_bwd_dq_fake(q, k, v, do, lse, delta, causal, scale):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op(
+    f"{OPS_NAMESPACE}::flash_bwd_dkv", mutates_args=(), device_types="cpu",
+    schema=f"{_BWD_ARGS} -> (Tensor, Tensor)",
+)
+def flash_bwd_dkv_op(q, k, v, do, lse, delta, causal, scale):
+    """K3 → (dk, dv); on CPU tensors its plain version."""
+    return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)
+
+
+flash_bwd_dkv_op.register_kernel("cuda")(flash_bwd_dkv_cuda)
+
+
+@flash_bwd_dkv_op.register_fake
+def _flash_bwd_dkv_fake(q, k, v, do, lse, delta, causal, scale):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal, scale, _, _ = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _flash_backward(ctx, do, _dlse):
+    """The JAX ``_flash`` custom_vjp's backward: delta = rowsum(dO·O) in f32,
+    outside the kernels, then K2 and K3."""
+    q, k, v, o, lse = ctx.saved_tensors
+    delta = (do.float() * o.float()).sum(-1)
+    dq = flash_bwd_dq_op(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+    dk, dv = flash_bwd_dkv_op(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+    return dq, dk, dv, None, None, None, None
+
+
+flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+
+
+def _check_device(x: torch.Tensor) -> None:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash attention runs on cuda or cpu tensors, got {x.device}")
 
 
 def flash_fwd(
     q, k, v, *, causal: bool, scale: float, block_q: int = BLOCK_Q, block_k: int = BLOCK_K
 ):
-    """K1 on CUDA tensors, its plain version on CPU tensors."""
-    if _on_cuda(q):
-        if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
-            raise ValueError(
-                f"the CUDA kernel's tiles are {BLOCK_Q}x{BLOCK_K}; got {block_q}x{block_k}"
-            )
-        return flash_fwd_cuda(q, k, v, causal, scale)
-    return flash_fwd_plain(q, k, v, causal, scale, block_q=block_q, block_k=block_k)
+    """K1 on CUDA tensors, its plain version on CPU tensors; differentiable
+    (K2 and K3 in the backward). Returns (o, lse)."""
+    _check_device(q)
+    return flash_fwd_op(q, k, v, causal, float(scale), block_q, block_k)
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float):
-    """K2 on CUDA tensors, its plain version on CPU tensors."""
-    if _on_cuda(q):
-        return flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
-    return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
-
-
-def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float):
-    """K3 on CUDA tensors, its plain version on CPU tensors."""
-    if _on_cuda(q):
-        return flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
-    return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)
-
-
-class _Flash(torch.autograd.Function):
-    """Flash attention with its kernel backward (≙ the JAX ``_flash``
-    custom_vjp): saves (q, k, v, o, lse); backward forms delta = rowsum(dO·O)
-    in f32, then runs K2 and K3."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float, block_q: int, block_k: int):
-        o, lse = flash_fwd(
-            q, k, v, causal=causal, scale=scale, block_q=block_q, block_k=block_k
+def _refuse_tensor_parallel(mesh) -> None:
+    """Under FSDP2 activations are rank-local, so a mesh of ``data`` and
+    ``fsdp`` axes runs the kernels on the local batch as they are; heads
+    sharded over ``tensor`` are a later slice."""
+    sizes = mesh_sizes(mesh)
+    if sizes.get("tensor", 1) > 1:
+        raise NotImplementedError(
+            f"flash_attention over a mesh with tensor={sizes['tensor']}: head sharding "
+            "comes with the tensor-parallel slice (DTensor TP plans), not ported yet"
         )
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return o
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        # delta = rowsum(dO·O) in f32: outside the kernels, as in the JAX package
-        delta = (do.float() * o.float()).sum(-1)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=ctx.causal, scale=ctx.scale)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -397,6 +457,7 @@ def flash_attention(
     scale: Optional[float] = None,
     block_q: int = BLOCK_Q,
     block_k: int = BLOCK_K,
+    mesh=None,
     layout: str = "bthd",
 ):
     """Flash attention in model layout q [B,T,H,D], k/v [B,T,Hkv,D] or, with
@@ -405,14 +466,18 @@ def flash_attention(
     CUDA tensors run the kernels; K1's tiles are compiled at ``BLOCK_Q`` ×
     ``BLOCK_K``, and a different ``block_q``/``block_k`` raises there. CPU
     tensors run the plain versions, which walk the same tiles (``block_q`` ×
-    ``block_k``)."""
+    ``block_k``). ``mesh`` (a ``DeviceMesh``) is the JAX signature's: with
+    ``data``/``fsdp`` axes the inputs are this rank's batch and attention
+    runs locally; a ``tensor`` axis above 1 raises."""
     if layout not in ("bthd", "bhtd"):
         raise ValueError(f"layout={layout!r}; expected bthd|bhtd")
+    if mesh is not None:
+        _refuse_tensor_parallel(mesh)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if layout == "bthd":
         q, k, v = (x.transpose(1, 2) for x in (q, k, v))
-    o = _Flash.apply(q, k, v, causal, float(scale), block_q, block_k)
+    o, _ = flash_fwd(q, k, v, causal=causal, scale=scale, block_q=block_q, block_k=block_k)
     return o if layout == "bhtd" else o.transpose(1, 2)
 
 

@@ -13,14 +13,21 @@ as in the JAX package) and the same rounding points:
 
 The JAX package stacks the layers on a leading axis for ``lax.scan``; here
 they are an ``nn.ModuleList`` and ``params_from_jax`` / ``params_to_jax``
-convert between the two. ``remat_layers`` checkpoints each layer with
-``torch.utils.checkpoint`` (so K1 runs twice per layer).
+convert between the two. ``remat_layers`` checkpoints each layer around its
+flash attention (:class:`DecoderLayer`): as under the JAX package's policy
+(``save_only_these_names("flash_o", "flash_lse")``), K1 runs once per layer
+per step, its (o, lse) kept for the backward, and the projections, RoPE,
+norms and FFN are recomputed. The flash inputs (q, k, v) are kept too,
+where JAX recomputes them: a selective-checkpoint policy that keeps only
+(o, lse) intercepts every op of the layer in Python and cost 10–15 ms of
+host time a step on the card, more than K1's second launch saves
+(PERF.md, §6).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -99,6 +106,30 @@ def tiny(vocab: int = 256) -> Config:
     )
 
 
+# Logical axes of one decoder layer's parameters (≙ the JAX ``logical_axes``
+# without its leading layer-stack axis, which is always replicated there).
+_LAYER_AXES = {
+    "attn_norm": ("stats",),
+    "wq": ("embed", "heads"),
+    "wk": ("embed", "kv_heads"),
+    "wv": ("embed", "kv_heads"),
+    "wo": ("heads", "embed"),
+    "mlp_norm": ("stats",),
+    "w_gate": ("embed", "mlp"),
+    "w_up": ("embed", "mlp"),
+    "w_down": ("mlp", "embed"),
+}
+
+
+def logical_axes(config: Config) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical axes of every parameter, keyed by its state-dict name
+    (parallel/sharding.py maps them to mesh axes)."""
+    axes = {"embed": ("vocab", "embed"), "final_norm": ("stats",), "lm_head": ("embed", "vocab")}
+    for i in range(config.n_layers):
+        axes.update({f"layers.{i}.{name}": a for name, a in _LAYER_AXES.items()})
+    return axes
+
+
 def _rmsnorm(x, scale, eps: float):
     x32 = x.float()
     y = x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + eps)
@@ -126,7 +157,14 @@ def _rope_bhtd(x, theta: float):
 
 
 class DecoderLayer(nn.Module):
-    """One pre-norm decoder layer: GQA attention with RoPE, then a SwiGLU FFN."""
+    """One pre-norm decoder layer: GQA attention with RoPE, then a SwiGLU FFN.
+
+    With ``remat_layers`` the layer checkpoints its own body in two regions,
+    the attention inputs (norm, q/k/v projections, RoPE) and the output
+    (wo, residual, norm, FFN), with the flash operator between them: the
+    backward recomputes both regions but not K1, whose (o, lse) the
+    operator saved. The regions sit inside the module, so FSDP2's unshard
+    and reshard hooks on the layer stay outside what is recomputed."""
 
     def __init__(self, config: Config, device=None):
         super().__init__()
@@ -148,23 +186,38 @@ class DecoderLayer(nn.Module):
 
     def forward(self, h):
         c = self.config
+        if not (c.remat_layers and torch.is_grad_enabled()):
+            return self._out(h, self._attn(*self._qkv(h)))
+        q, k, v = checkpoint(self._qkv, h, use_reentrant=False)
+        attn = self._attn(q, k, v)
+        return checkpoint(self._out, h, attn, use_reentrant=False)
+
+    def _qkv(self, h):
+        c = self.config
         dt = c.compute_dtype
         y = _rmsnorm(h, self.attn_norm, c.norm_eps)
-        scale = c.head_dim ** -0.5
         # heads-major end to end: project straight into the kernels'
-        # [B,H,T,Dh] layout and fold the output back through wo
+        # [B,H,T,Dh] layout (and fold the output back through wo in _out)
         wq3 = self.wq.to(dt).reshape(-1, c.n_heads, c.head_dim)
         wk3 = self.wk.to(dt).reshape(-1, c.n_kv_heads, c.head_dim)
         wv3 = self.wv.to(dt).reshape(-1, c.n_kv_heads, c.head_dim)
         q = _rope_bhtd(torch.einsum("btd,dhx->bhtx", y, wq3), c.rope_theta)
         k = _rope_bhtd(torch.einsum("btd,dhx->bhtx", y, wk3), c.rope_theta)
         v = torch.einsum("btd,dhx->bhtx", y, wv3)
+        return q, k, v
+
+    def _attn(self, q, k, v):
+        c = self.config
+        scale = c.head_dim ** -0.5
         if c.attention_impl == "dense":
-            attn = dense_attention(
+            return dense_attention(
                 *(x.transpose(1, 2) for x in (q, k, v)), causal=True, scale=scale
             ).transpose(1, 2)
-        else:
-            attn = flash_attention(q, k, v, causal=True, scale=scale, layout="bhtd")
+        return flash_attention(q, k, v, causal=True, scale=scale, layout="bhtd")
+
+    def _out(self, h, attn):
+        c = self.config
+        dt = c.compute_dtype
         wo3 = self.wo.to(dt).reshape(c.n_heads, c.head_dim, -1)
         h = h + torch.einsum("bhtx,hxd->btd", attn, wo3)
         y = _rmsnorm(h, self.mlp_norm, c.norm_eps)
@@ -190,10 +243,7 @@ class Llama(nn.Module):
         dt = c.compute_dtype
         x = self.embed.to(dt)[tokens]
         for layer in self.layers:
-            if c.remat_layers and torch.is_grad_enabled():
-                x = checkpoint(layer, x, use_reentrant=False)
-            else:
-                x = layer(x)
+            x = layer(x)
         x = _rmsnorm(x, self.final_norm, c.norm_eps)
         if return_features:
             return x

@@ -1,4 +1,5 @@
-"""Single-device trainer: one eager train step with optax's optimizers.
+"""Trainer: one eager train step with optax's optimizers, on one device or
+sharded over a mesh.
 
 Port of ``mpi_operator_tpu/ops/trainer.py``. The update is written by hand
 so that it matches the optax chain the JAX trainer builds, term for term:
@@ -14,7 +15,18 @@ so that it matches the optax chain the JAX trainer builds, term for term:
   ``warmup_cosine_decay_schedule``; step n uses the schedule at count n.
 
 Parameters, moments and traces are updated in place (JAX returns new
-arrays; in place saves a copy of the whole model per step).
+arrays; in place saves a copy of the whole model per step). The optimizer
+state is keyed by parameter name, so a checkpoint does not depend on the
+order of the parameters.
+
+With a mesh (``Trainer(..., mesh=...)``) the model is sharded with FSDP2
+(parallel/sharding.py): parameters and moments are DTensors, each rank
+holding its shard, and the update runs on the local shards, which is
+exact for an elementwise update. FSDP2 averages the sharded gradients over
+the ranks; the trainer averages the replicated ones (the norm scales) and
+the reported loss, which is then the global batch's mean, as JAX's
+replicated loss is. The global norm sums the squares of every shard over
+the mesh, so clipping triggers at the same step as on one device.
 """
 
 from __future__ import annotations
@@ -24,7 +36,9 @@ import math
 from typing import Any, Callable, Dict
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial
 from torch.utils.checkpoint import checkpoint
 
 
@@ -67,9 +81,27 @@ def learning_rate(config: TrainerConfig, count: int) -> float:
     return lr * min(count, transition) / transition
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (the tensor itself otherwise); in
+    place ops on it update the DTensor."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor, in f32."""
-    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+    """sqrt of the sum of squares over every tensor, in f32. A DTensor's
+    squares are summed over its shards on every rank of its mesh (one
+    reduction for all of them; they must share one mesh)."""
+    plain = [t for t in tensors if not isinstance(t, DTensor)]
+    sharded = [t for t in tensors if isinstance(t, DTensor)]
+    total = sum(t.float().pow(2).sum() for t in plain)
+    if sharded:
+        like = sharded[0]
+        if any(t.device_mesh != like.device_mesh for t in sharded):
+            raise ValueError("global_norm takes DTensors of one mesh")
+        local = sum(t.to_local().float().pow(2).sum() for t in sharded)
+        placements = [Partial() if p.is_shard() else p for p in like.placements]
+        total = total + DTensor.from_local(local, like.device_mesh, placements).full_tensor()
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
@@ -79,8 +111,14 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     norm = global_norm(grads)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
-        g.mul_(factor)
+        _local(g).mul_(factor)
     return norm
+
+
+def _mean_over_ranks_(t: torch.Tensor) -> torch.Tensor:
+    """All-reduce to the mean over every rank, in place (gloo has no AVG)."""
+    dist.all_reduce(t)
+    return t.div_(dist.get_world_size())
 
 
 class Trainer:
@@ -89,12 +127,16 @@ class Trainer:
     Args:
       loss_fn: ``(model, batch) -> scalar loss``.
       config: optimizer, schedule and clipping settings.
+      mesh: the job's ``DeviceMesh`` (runtime/topology.py): ``init_state``
+        shards the model over it. None: one device, no process group.
     """
 
-    def __init__(self, loss_fn: Callable, config: TrainerConfig = TrainerConfig()):
+    def __init__(self, loss_fn: Callable, config: TrainerConfig = TrainerConfig(), mesh=None):
         if config.optimizer not in ("adamw", "sgd", "momentum"):
             raise ValueError(f"unknown optimizer {config.optimizer!r}")
         self.config = config
+        self.mesh = mesh
+        self._replicated = []
         if config.remat:
             inner = loss_fn
 
@@ -104,16 +146,23 @@ class Trainer:
         self._loss_fn = loss_fn
 
     def init_state(self, model: nn.Module) -> TrainState:
+        """The state at step 0; with a mesh, shards ``model`` first (in
+        place), so the moments are DTensors laid out as their parameters."""
         c = self.config
-        params = list(model.parameters())
+        if self.mesh is not None:
+            from mpi_operator_tpu_torch.parallel.sharding import shard_model
+
+            self._replicated = shard_model(model, self.mesh)
+        params = dict(model.named_parameters())
+
+        def zeros(dtype=None):
+            return {n: torch.zeros_like(p, dtype=dtype) for n, p in params.items()}
+
         if c.optimizer == "adamw":
-            mu_dtype = torch.bfloat16 if c.adam_mu_bf16 else None
-            opt_state = {
-                "mu": [torch.zeros_like(p, dtype=mu_dtype) for p in params],
-                "nu": [torch.zeros_like(p) for p in params],
-            }
+            opt_state = {"mu": zeros(torch.bfloat16 if c.adam_mu_bf16 else None),
+                         "nu": zeros()}
         elif c.optimizer == "momentum":
-            opt_state = {"trace": [torch.zeros_like(p) for p in params]}
+            opt_state = {"trace": zeros()}
         else:
             opt_state = {}
         return TrainState(step=0, params=model, opt_state=opt_state)
@@ -123,22 +172,27 @@ class Trainer:
         tensors (``loss``, and ``grad_norm`` when clipping), unsynchronised."""
         c = self.config
         model = state.params
-        params = list(model.parameters())
-        for p in params:
+        params = dict(model.named_parameters())
+        for p in params.values():
             p.grad = None
         loss = self._loss_fn(model, batch)
         loss.backward()
-        grads = [p.grad for p in params]
         metrics = {"loss": loss.detach()}
         with torch.no_grad():
+            if self.mesh is not None:
+                metrics["loss"] = _mean_over_ranks_(metrics["loss"].clone())
+                for p in self._replicated:
+                    _mean_over_ranks_(p.grad)
+            grads = {n: p.grad for n, p in params.items()}
             if c.grad_clip_norm > 0:
-                metrics["grad_norm"] = clip_by_global_norm_(grads, c.grad_clip_norm)
+                metrics["grad_norm"] = clip_by_global_norm_(list(grads.values()),
+                                                            c.grad_clip_norm)
             lr = learning_rate(c, state.step)
             if c.optimizer == "adamw":
                 self._adamw(params, grads, state.opt_state, state.step + 1, lr)
             else:
                 self._sgd(params, grads, state.opt_state, lr)
-        for p in params:
+        for p in params.values():
             p.grad = None
         state.step += 1
         return state, metrics
@@ -147,7 +201,9 @@ class Trainer:
         c = self.config
         bc1 = 1.0 - c.beta1 ** count
         bc2 = 1.0 - c.beta2 ** count
-        for p, g, mu, nu in zip(params, grads, opt["mu"], opt["nu"]):
+        for name, p in params.items():
+            p, g, mu, nu = (_local(t) for t in (p, grads[name], opt["mu"][name],
+                                                 opt["nu"][name]))
             # b1·mu in mu's dtype, b1 rounded to it too (as in optax, where a
             # Python float times a bf16 moment is a bf16 product); the sum
             # with (1 - b1)·g in f32
@@ -162,7 +218,8 @@ class Trainer:
 
     def _sgd(self, params, grads, opt, lr: float):
         traces = opt.get("trace")
-        for i, (p, g) in enumerate(zip(params, grads)):
+        for name, p in params.items():
+            p, g = _local(p), _local(grads[name])
             if traces is not None:
-                g = traces[i].mul_(self.config.momentum).add_(g)
+                g = _local(traces[name]).mul_(self.config.momentum).add_(g)
             p.add_(g, alpha=-lr)

@@ -1,4 +1,4 @@
-"""Single-host runtime: the worker's context and its device."""
+"""Runtime: the worker's context, its rendezvous and device, and the mesh."""
 
 from mpi_operator_tpu_torch.runtime.bootstrap import (
     RuntimeContext,
@@ -6,3 +6,4 @@ from mpi_operator_tpu_torch.runtime.bootstrap import (
     initialize,
     resolve_device,
 )
+from mpi_operator_tpu_torch.runtime.topology import MeshPlan, build_mesh, mesh_from_context

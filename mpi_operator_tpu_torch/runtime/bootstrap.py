@@ -10,17 +10,23 @@ Two rules differ from the JAX package on purpose:
 - The device is never taken from ``TPUJOB_ACCELERATOR``. Entry points run on
   ``cuda`` unless the caller passes ``device="cpu"``, and raise when CUDA is
   missing; nothing falls back to the CPU.
-- Only a single host is supported. Multi-host rendezvous
-  (``torch.distributed``) comes with the mesh in a later slice.
+- JAX runs one process per host; the port runs one per chip (a *rank*).
+  The executor launches one process per host, and the worker spawns its
+  ``chips_per_host`` local ranks (workers/llama_worker.py). Rank =
+  ``host_id * local_chips + local_rank``; world = ``num_hosts *
+  local_chips``. :func:`process_index` and :func:`process_count` keep the
+  JAX meaning (the host and the number of hosts).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 from typing import Mapping, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 ENV_JOB_NAME = "TPUJOB_NAME"
 ENV_NAMESPACE = "TPUJOB_NAMESPACE"
@@ -123,19 +129,95 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
     return dev
 
 
+# the gang this process joined (set by initialize, cleared by shutdown)
+_active: Optional[RuntimeContext] = None
+_local_rank = 0
+_local_chips = 1
+
+RENDEZVOUS_TIMEOUT = datetime.timedelta(seconds=300)
+
+
+def _backend(device: torch.device) -> str:
+    # the elastic loop's membership all-gather (and DCP's planning) runs on
+    # CPU tensors: the card's group carries gloo for those beside NCCL
+    return "cuda:nccl,cpu:gloo" if device.type == "cuda" else "gloo"
+
+
 def initialize(
     ctx: Optional[RuntimeContext] = None,
     *,
     device: Union[str, torch.device, None] = None,
     environ: Optional[Mapping[str, str]] = None,
+    local_rank: int = 0,
+    group: bool = False,
 ) -> torch.device:
-    """Check that this is a single-host gang and return the device to run on
-    (see :func:`resolve_device`)."""
+    """Join the gang and return the device to run on (see
+    :func:`resolve_device`).
+
+    A single-host run with one chip forms no process group unless asked
+    (``group=True``: a mesh or checkpoints need one): the plain
+    single-device path. Otherwise this process
+    becomes rank ``host_id * local_chips + local_rank`` of a
+    ``torch.distributed`` group, rendezvousing through a ``TCPStore`` at
+    ``TPUJOB_COORDINATOR_ADDRESS`` (rank 0 serves it), on ``cuda:<local
+    rank>`` with NCCL (and gloo for CPU tensors) or on the CPU with gloo.
+    A one-rank group (one host, one chip, ``group=True``) serves its
+    store on a free localhost port. A rendezvous or NCCL failure raises;
+    nothing falls back to the CPU."""
+    global _active, _local_rank, _local_chips
     if ctx is None:
         ctx = context_from_env(environ)
-    if ctx.is_distributed:
-        raise NotImplementedError(
-            f"{ENV_NUM_HOSTS}={ctx.num_hosts}: multi-host rendezvous is not ported "
-            "to the PyTorch package yet (it comes with the mesh and FSDP slice)"
-        )
-    return resolve_device(device)
+    dev = resolve_device(device)
+    local = ctx.local_chips() if dev.type == "cuda" else max(ctx.chips_per_host, 1)
+    world = ctx.num_hosts * local
+    if world == 1 and not group:
+        return dev
+    if not 0 <= local_rank < local:
+        raise ValueError(f"local rank {local_rank} outside this host's {local} chips")
+    if dev.type == "cuda":
+        dev = torch.device("cuda", local_rank)
+        torch.cuda.set_device(dev)
+    rank = ctx.host_id * local + local_rank
+    if world == 1:
+        store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True, timeout=RENDEZVOUS_TIMEOUT)
+    else:
+        if not ctx.coordinator_address:
+            raise RuntimeError(
+                f"{ENV_NUM_HOSTS}={ctx.num_hosts} with {local} chips per host but "
+                f"{ENV_COORDINATOR} is unset — the controller always injects both; "
+                "refusing to guess"
+            )
+        host, _, port = ctx.coordinator_address.rpartition(":")
+        store = dist.TCPStore(host, int(port), world, is_master=rank == 0,
+                              timeout=RENDEZVOUS_TIMEOUT)
+    dist.init_process_group(_backend(dev), store=store, rank=rank, world_size=world)
+    _active, _local_rank, _local_chips = ctx, local_rank, local
+    return dev
+
+
+def shutdown() -> None:
+    """Leave the gang (destroy the process group, if one was formed)."""
+    global _active
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _active = None
+
+
+def process_index() -> int:
+    """This host's index in the gang (JAX's ``process_index``)."""
+    return _active.host_id if _active is not None else 0
+
+
+def process_count() -> int:
+    """The number of hosts in the gang (JAX's ``process_count``)."""
+    return _active.num_hosts if _active is not None else 1
+
+
+def local_rank() -> int:
+    """This process's rank among its host's chips."""
+    return _local_rank if _active is not None else 0
+
+
+def local_chips() -> int:
+    """The ranks this host runs (1 without a gang)."""
+    return _local_chips if _active is not None else 1

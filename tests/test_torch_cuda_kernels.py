@@ -146,3 +146,50 @@ def test_cuda_wrapper_checks_run_before_any_launch():
     with pytest.raises(ValueError, match="tiles"):
         tfa.flash_attention(*(x.bfloat16(),) * 3, block_q=32, block_k=32, layout="bhtd")
     assert tfa.launches == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+@pytest.mark.cuda
+def test_operators_launch_the_kernels_bitwise():
+    """The torch.library operators reach the same launchers: on CUDA tensors
+    flash_fwd_op, flash_bwd_dq_op and flash_bwd_dkv_op give bitwise the
+    launchers' outputs, and each counts one launch."""
+    _need_card()
+    q, k, v, do = _inputs(9, 2, 257, 8, 2, 128)
+    scale = 128 ** -0.5
+    o, lse = tfa.flash_fwd_cuda(q, k, v, True, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, True, scale)
+    want = (o, lse, tfa.flash_bwd_dq_cuda(*args), *tfa.flash_bwd_dkv_cuda(*args))
+    tfa.reset_launches()
+    got = (*tfa.flash_fwd_op(q, k, v, True, scale, tfa.BLOCK_Q, tfa.BLOCK_K),
+           tfa.flash_bwd_dq_op(*args), *tfa.flash_bwd_dkv_op(*args))
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert tfa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+@pytest.mark.cuda
+def test_remat_launches_k1_once_per_layer_on_the_card():
+    """The per-layer remat keeps K1's (o, lse): one forward + backward of a
+    small Llama launches K1 once per layer (twice under a plain checkpoint
+    of the whole layer), K2 and K3 once each, and the gradients are bitwise
+    those without remat."""
+    import dataclasses
+
+    from mpi_operator_tpu_torch.models import llama
+
+    _need_card()
+    cfg = dataclasses.replace(llama.tiny(), d_model=256, n_heads=4, n_kv_heads=2,
+                              head_dim=64, d_ff=512, n_layers=3)
+    base = llama.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    tokens = {"tokens": torch.randint(0, cfg.vocab, (2, 200), device="cuda")}
+    grads = []
+    for remat in (False, True):
+        model = llama.Llama(dataclasses.replace(cfg, remat_layers=remat), device="cuda")
+        model.load_state_dict(base.state_dict())
+        tfa.reset_launches()
+        llama.loss_fn(model, tokens).backward()
+        torch.cuda.synchronize()
+        assert tfa.launches == {"flash_fwd": 3, "flash_bwd_dq": 3, "flash_bwd_dkv": 3}
+        grads.append([p.grad for p in model.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))

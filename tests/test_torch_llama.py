@@ -150,3 +150,27 @@ def test_remat_layers_gives_the_same_grads():
         grads.append([p.grad for p in model.parameters()])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_remat_saves_k1_outputs_and_runs_it_once_per_layer(monkeypatch):
+    """As under the JAX remat policy (save_only_these_names("flash_o",
+    "flash_lse")): with remat_layers one forward + backward calls the flash
+    forward operator once per layer, not twice, and the gradients are
+    bitwise those without remat."""
+    from mpi_operator_tpu_torch.kernels import flash_attention as tfa
+
+    calls = []
+    plain = tfa.flash_fwd_plain
+    monkeypatch.setattr(tfa, "flash_fwd_plain", lambda *a, **k: calls.append(1) or plain(*a, **k))
+    _, tc = _configs("f32", "auto")
+    tree = _jax_params()
+    tokens = {"tokens": torch.from_numpy(_tokens(2, 24, tc.vocab)).long()}
+    grads, counts = [], []
+    for remat in (False, True):
+        model = _model(dataclasses.replace(tc, remat_layers=remat), tree)
+        calls.clear()
+        tllama.loss_fn(model, tokens).backward()
+        counts.append(len(calls))
+        grads.append([p.grad for p in model.parameters()])
+    assert counts == [tc.n_layers, tc.n_layers]
+    assert all(torch.equal(a, b) for a, b in zip(*grads))

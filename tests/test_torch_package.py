@@ -4,6 +4,8 @@
   JAX package (an AST scan, so a lazy import inside a function counts too).
 - Its entry points run on CUDA unless the caller asks for the CPU: without
   a card they raise; they never fall back to the CPU.
+- A gang without a coordinator address, a mesh axis the port does not shard
+  over yet and a DCN spec without a mesh are refused before any rendezvous.
 - The copies it keeps of the JAX package's framework-free pieces (env
   names, context parsing, the token stream) agree with the originals.
 """
@@ -85,10 +87,11 @@ def test_initialize_refuses_the_cpu_unless_asked(no_cuda):
     assert bootstrap.initialize(environ={}, device="cpu") == torch.device("cpu")
 
 
-def test_initialize_refuses_multi_host():
-    ctx = bootstrap.context_from_env({bootstrap.ENV_NUM_HOSTS: "2"})
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        bootstrap.initialize(ctx, device="cpu")
+def test_initialize_refuses_a_gang_without_coordinator():
+    for env in ({bootstrap.ENV_NUM_HOSTS: "2"}, {bootstrap.ENV_CHIPS_PER_HOST: "2"}):
+        with pytest.raises(RuntimeError, match="TPUJOB_COORDINATOR_ADDRESS is unset"):
+            bootstrap.initialize(bootstrap.context_from_env(env), device="cpu")
+    assert not torch.distributed.is_initialized()
 
 
 def test_bench_and_worker_refuse_to_run_without_cuda(no_cuda):
@@ -111,11 +114,19 @@ def test_bench_module_exits_nonzero_without_cuda():
     assert proc.stdout == ""
 
 
-@pytest.mark.parametrize("name", ["LLAMA_CKPT", "LLAMA_MESH", "LLAMA_MESH_DCN",
-                                  bootstrap.ENV_CKPT_DIR])
-def test_worker_refuses_unported_options(name):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        llama_worker.main(device="cpu", environ={name: "/x", "LLAMA_STEPS": "1"})
+@pytest.mark.parametrize("axis, slice_name", [
+    ("tensor", "tensor-parallel"), ("sequence", "ring-attention"), ("expert", "MoE"),
+    ("pipe", "pipeline"),
+])
+def test_worker_refuses_unported_mesh_axes(axis, slice_name):
+    with pytest.raises(NotImplementedError, match=f"{axis}=2 is not ported.*{slice_name}"):
+        llama_worker.main(device="cpu", environ={"LLAMA_MESH": f"fsdp=2,{axis}=2"})
+    assert not torch.distributed.is_initialized()
+
+
+def test_worker_refuses_dcn_without_mesh():
+    with pytest.raises(SystemExit, match="LLAMA_MESH_DCN requires LLAMA_MESH"):
+        llama_worker.main(device="cpu", environ={"LLAMA_MESH_DCN": "data=2"})
 
 
 def test_worker_trains_tiny_on_the_cpu_when_asked(capsys):
@@ -157,6 +168,11 @@ def test_synthetic_tokens_are_the_jax_stream():
     batch = data.make_global_batch(ours, "cpu")
     assert batch["tokens"].dtype == torch.int64
     np.testing.assert_array_equal(batch["tokens"].numpy(), theirs["tokens"])
+    # host 1 of 2 draws the JAX package's host 1 rows: seed + host, half the batch
+    host1 = next(data.synthetic_tokens(**{**kw, "global_batch": 6}, process_index=1,
+                                       process_count=2))["tokens"]
+    want = np.random.default_rng(5 + 1).integers(0, 1000, (3, 17)).astype(np.int32)
+    np.testing.assert_array_equal(host1, want)
 
 
 def test_bench_timed_steps_on_a_tiny_model_on_the_cpu():
