@@ -41,11 +41,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    step-stats blobs have compute and ckpt seconds; the checkpoint's bytes,
    save and restore times are printed. The checkpoint (~9.5 GB) goes to a
    temporary directory in ``$TMPDIR`` or the checkout, whichever has more
-   room; under 3 checkpoints of room the phase fails.
+   room; under 3 checkpoints of room the phase fails;
+7. ring: the ring attention's per-rank fold
+   (``parallel/ring_attention.fold_every_rank``), forward and backward, for
+   all 4 ranks of a ``sequence=4`` ring in one process (NCCL refuses two
+   ranks on one card, so the transport is left out), at
+   ``bench_single_chip``'s heads (H 16, Hkv 4, D 128), B 1, T 16384 in 4
+   blocks of 4096: K1 per non-future block (causal on the diagonal, full on
+   older blocks), K2 and K3 per block with the merged lse. The merged o and
+   lse and the summed dq, dk, dv are held against K1–K3's plain versions
+   over the whole T (the backward one kv head at a time), with phase 3's
+   ceilings and per-row bound, and so are K1–K3 launched once over the
+   whole T; each kernel launches n(n+1)/2 = 10 times in the fold. The
+   fold's time, and each kernel's 10 launches
+   alone, are timed beside the same work as one launch over the whole T:
+   the causal (q, k) pairs are the same, so the ratios are what splitting
+   T costs (the merges and f32 sums, and grids a quarter the size).
 
 The line before the last is a JSON object with one entry per kernel (its
-registers and spill bytes per head dim from ptxas beside its numbers); the
-last is ``{"ok": true, "device": {...}}``.
+registers and spill bytes per head dim from ptxas, and from phase 7 its
+launches as ``ring_launches`` and the fold-vs-whole times as ``ring_ms`` /
+``ring_whole_ms``, beside its numbers); the last is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -88,6 +105,7 @@ SHAPES = [
 TOL_O, TOL_LSE, TOL_GRAD_REL = 3e-2, 1e-3, 3e-2
 # the tight check beside them: worst per-row relative RMS error (_row_err)
 TOL_ROW, ROW_FLOOR = 1e-2, 0.1
+RING_SHAPE, RING_N = (1, 16384, 16, 4, 128), 4  # B, T, H, Hkv, D; ranks of the ring
 
 
 def _grad_bound(ref) -> float:
@@ -495,6 +513,108 @@ def phase_gang(smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _plain_whole(q, k, v, do, scale: float):
+    """(o, lse, dq, dk, dv) of K1–K3's plain versions over the whole T,
+    causal: the forward in one call (it walks the kernel's tiles), the
+    backward one kv head (and its group of q heads) at a time, since it
+    holds [g, T, T] f32 scores (4.3 GB per kv head at T 16384)."""
+    from mpi_operator_tpu_torch.kernels import flash_attention as fa
+    from mpi_operator_tpu_torch.parallel import ring_attention as ra
+
+    o, lse = fa.flash_fwd_plain(q, k, v, True, scale)
+    delta = ra.attention_delta(do, o)
+    g = q.shape[1] // k.shape[1]
+    grads = []
+    for j in range(k.shape[1]):
+        hs = slice(j * g, (j + 1) * g)
+        args = (q[:, hs], k[:, j:j + 1], v[:, j:j + 1], do[:, hs], lse[:, hs], delta[:, hs],
+                True, scale)
+        grads.append((fa.flash_bwd_dq_plain(*args), *fa.flash_bwd_dkv_plain(*args)))
+        torch.cuda.empty_cache()
+    return (o, lse, *(torch.cat(x, dim=1) for x in zip(*grads)))
+
+
+def phase_ring(smi: str) -> dict:
+    """Phase 7 (see the module docstring). Returns each kernel's launches in
+    the fold, and the fold's and the whole-T kernels' times (ms)."""
+    from mpi_operator_tpu_torch.kernels import flash_attention as fa
+    from mpi_operator_tpu_torch.parallel import ring_attention as ra
+
+    b, t, h, h_kv, d = RING_SHAPE
+    scale = d ** -0.5
+    q, k, v, do = _inputs(RING_SHAPE, seed=21)
+    tag = f"{RING_SHAPE} causal, sequence={RING_N}"
+
+    def whole():
+        o, lse = fa.flash_fwd_cuda(q, k, v, True, scale)
+        delta = ra.attention_delta(do, o)
+        dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, True, scale)
+        return (o, lse, dq, *fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True, scale))
+
+    def fold():
+        return ra.fold_every_rank(q, k, v, do, RING_N, causal=True, scale=scale)
+
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        fa.reset_launches()
+        got = fold()
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)
+        log(f"[ring] kernel launches in the fold of {RING_N} ranks: {launches}")
+        want = RING_N * (RING_N + 1) // 2
+        if launches != {name: want for name in REPLACES}:
+            fail(f"expected {want} launches of each kernel in the ring's fold, got {launches}")
+        refs = _plain_whole(q, k, v, do, scale)
+        for label, res in (("ring fold", got), ("whole-T kernels", whole())):
+            for name, g, r in zip(("o", "lse", "dq", "dk", "dv"), res, refs):
+                if name == "lse":
+                    e = _max_err(g, r)
+                    log(f"[ring] {label} lse {tag}: max abs err {e:.3e} (bound {TOL_LSE:.1e})")
+                    if not e <= TOL_LSE:
+                        fail(f"{label}: lse disagrees with K1's plain version: {e}")
+                else:
+                    _check(f"{label} {name} {tag}", g, r,
+                           TOL_O if name == "o" else _grad_bound(r))
+        # each kernel alone: its launches in the fold (the whole-T lse and
+        # delta in place of the merged ones: the same work) against one
+        # launch over the whole T
+        o_ref, lse = refs[:2]
+        delta = ra.attention_delta(do, o_ref)
+        del got, refs, o_ref
+        qs, ks, vs, dos, lses, deltas = ([c.contiguous() for c in x.chunk(RING_N, dim=2)]
+                                         for x in (q, k, v, do, lse, delta))
+        visits = [(i, j, ra.block_causality(i, j, True))
+                  for i in range(RING_N) for j in range(i + 1)]
+
+        def per_block(kernel, *with_grads):
+            def run():
+                for i, j, how in visits:
+                    grads = (dos[i], lses[i], deltas[i]) if with_grads else ()
+                    kernel(qs[i], ks[j], vs[j], *grads, how, scale)
+            return run
+
+        bwd = (do, lse, delta)
+        per_kernel = {
+            "flash_fwd": (per_block(fa.flash_fwd_cuda),
+                          lambda: fa.flash_fwd_cuda(q, k, v, True, scale)),
+            "flash_bwd_dq": (per_block(fa.flash_bwd_dq_cuda, True),
+                             lambda: fa.flash_bwd_dq_cuda(q, k, v, *bwd, True, scale)),
+            "flash_bwd_dkv": (per_block(fa.flash_bwd_dkv_cuda, True),
+                              lambda: fa.flash_bwd_dkv_cuda(q, k, v, *bwd, True, scale)),
+        }
+        times = {name: {"ring_ms": _time_ms(f, reps=5), "ring_whole_ms": _time_ms(w, reps=5)}
+                 for name, (f, w) in per_kernel.items()}
+        fold_ms, whole_ms = _time_ms(fold, reps=5), _time_ms(whole, reps=5)
+    for name, tm in times.items():
+        log(f"[timing] ring {name} {tag}: {want} launches in the fold {tm['ring_ms']:.3f} ms, "
+            f"one over the whole T {tm['ring_whole_ms']:.3f} ms, ratio "
+            f"{tm['ring_ms'] / tm['ring_whole_ms']:.3f} [{smi}]")
+    log(f"[timing] ring {tag}: fold of every rank (K1 x{want}, K2 x{want}, K3 x{want}, merges) "
+        f"{fold_ms:.3f} ms, K1 + K2 + K3 over the whole T {whole_ms:.3f} ms, ratio "
+        f"{fold_ms / whole_ms:.3f} [{smi}]")
+    return {"launches": launches, "times": times, "fold_ms": fold_ms, "whole_ms": whole_ms}
+
+
 def main() -> None:
     smi = phase_device()
     resources = phase_build()
@@ -503,6 +623,7 @@ def main() -> None:
     phase_reference()
     launches = phase_main(smi)
     phase_gang(smi)
+    ring = phase_ring(smi)
     kernels = [
         {
             "name": name,
@@ -510,6 +631,8 @@ def main() -> None:
             "source": CU_SOURCE,
             "replaces": REPLACES[name],
             "launches": launches[name],
+            "ring_launches": ring["launches"][name],
+            **ring["times"][name],
             "max_abs_err": errs[name],
             **times[name],
             **resources[name],

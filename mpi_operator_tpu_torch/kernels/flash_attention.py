@@ -436,15 +436,21 @@ def flash_fwd(
     return flash_fwd_op(q, k, v, causal, float(scale), block_q, block_k)
 
 
-def _refuse_tensor_parallel(mesh) -> None:
-    """Under FSDP2 activations are rank-local, so a mesh of ``data`` and
-    ``fsdp`` axes runs the kernels on the local batch as they are; heads
-    sharded over ``tensor`` are a later slice."""
+def _check_local_heads(mesh, h: int, h_kv: int) -> None:
+    """Activations are rank-local: over ``data``/``fsdp`` the inputs are this
+    rank's batch, and over ``tensor`` its heads, which must keep whole GQA
+    groups (the JAX package shards heads only when both counts divide). A
+    sequence split over ``sequence`` is the ring's (parallel/ring_attention.py)."""
     sizes = mesh_sizes(mesh)
-    if sizes.get("tensor", 1) > 1:
-        raise NotImplementedError(
-            f"flash_attention over a mesh with tensor={sizes['tensor']}: head sharding "
-            "comes with the tensor-parallel slice (DTensor TP plans), not ported yet"
+    if sizes.get("sequence", 1) > 1:
+        raise ValueError(
+            f"flash_attention over a mesh with sequence={sizes['sequence']}: the local "
+            "queries would miss the other ranks' keys; use ring_attention"
+        )
+    if h_kv == 0 or h % h_kv:
+        raise ValueError(
+            f"this rank's {h} q heads do not group over its {h_kv} kv heads "
+            f"(tensor={sizes.get('tensor', 1)}): each rank must hold whole GQA groups"
         )
 
 
@@ -466,13 +472,15 @@ def flash_attention(
     CUDA tensors run the kernels; K1's tiles are compiled at ``BLOCK_Q`` ×
     ``BLOCK_K``, and a different ``block_q``/``block_k`` raises there. CPU
     tensors run the plain versions, which walk the same tiles (``block_q`` ×
-    ``block_k``). ``mesh`` (a ``DeviceMesh``) is the JAX signature's: with
-    ``data``/``fsdp`` axes the inputs are this rank's batch and attention
-    runs locally; a ``tensor`` axis above 1 raises."""
+    ``block_k``). ``mesh`` (a ``DeviceMesh``) is the JAX signature's: the
+    inputs are this rank's batch and, over ``tensor``, its heads, and
+    attention runs on them; heads that do not form whole GQA groups and a
+    ``sequence`` axis above 1 raise ``ValueError``."""
     if layout not in ("bthd", "bhtd"):
         raise ValueError(f"layout={layout!r}; expected bthd|bhtd")
     if mesh is not None:
-        _refuse_tensor_parallel(mesh)
+        h_dim = 1 if layout == "bhtd" else 2
+        _check_local_heads(mesh, q.shape[h_dim], k.shape[h_dim])
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if layout == "bthd":

@@ -22,6 +22,24 @@ where JAX recomputes them: a selective-checkpoint policy that keeps only
 (o, lse) intercepts every op of the layer in Python and cost 10–15 ms of
 host time a step on the card, more than K1's second launch saves
 (PERF.md, §6).
+
+Sharded over a mesh (parallel/sharding.py calls :func:`set_parallel`), a
+rank computes on its own shards, as Megatron-LM does:
+
+- ``tensor``: the q/k/v and gate/up products are column-parallel (this
+  rank's heads and FFN columns) after ``copy_to_tp`` of the normed input;
+  ``wo`` and ``w_down`` are row-parallel, their partial outputs summed by
+  ``reduce_from_tp`` (parallel/collectives.py). The embedding and
+  ``lm_head`` are split over the vocabulary: a token outside this rank's
+  rows embeds to zero before the sum, and the cross-entropy takes its max,
+  its sum of exps and the target's logit over the ranks' vocab blocks
+  (:func:`_token_ll`); full-vocab logits never exist on one rank;
+- ``sequence``: the rank holds one contiguous block of T; RoPE runs at the
+  block's global positions and attention is the ring
+  (parallel/ring_attention.py), which sits between the two checkpointed
+  regions of the layer as K1 does, so the recompute runs no ring transfer.
+  The batch carries the block's next-token targets and validity mask
+  (ops/data.py), and the loss is the block's share of its rows' mean.
 """
 
 from __future__ import annotations
@@ -32,10 +50,13 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from mpi_operator_tpu_torch.kernels.flash_attention import flash_attention
-from mpi_operator_tpu_torch.parallel.ring_attention import dense_attention
+from mpi_operator_tpu_torch.parallel import collectives
+from mpi_operator_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
+from mpi_operator_tpu_torch.parallel.ring_attention import dense_attention, ring_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,11 +157,13 @@ def _rmsnorm(x, scale, eps: float):
     return (y * scale).to(x.dtype)
 
 
-def _rope_tables(t: int, dh: int, theta: float, dtype, device):
-    """cos/sin [T, Dh/2], built in f32 and cast to ``dtype``."""
+def _rope_tables(t: int, dh: int, theta: float, dtype, device, offset: int = 0):
+    """cos/sin [T, Dh/2] at positions offset..offset+T-1, built in f32 and
+    cast to ``dtype``."""
     half = dh // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=device) / half)
-    ang = torch.arange(t, dtype=torch.float32, device=device)[:, None] * freqs[None, :]
+    pos = torch.arange(offset, offset + t, dtype=torch.float32, device=device)
+    ang = pos[:, None] * freqs[None, :]
     return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
 
 
@@ -150,10 +173,24 @@ def _rotate(x, cos, sin):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def _rope_bhtd(x, theta: float):
-    """RoPE, heads-major layout: x [B,H,T,Dh]."""
-    cos, sin = _rope_tables(x.shape[2], x.shape[-1], theta, x.dtype, x.device)
+def _rope_bhtd(x, theta: float, offset: int = 0):
+    """RoPE, heads-major layout: x [B,H,T,Dh] at positions offset.."""
+    cos, sin = _rope_tables(x.shape[2], x.shape[-1], theta, x.dtype, x.device, offset)
     return _rotate(x, cos, sin)
+
+
+def _local(p):
+    """This rank's shard of a parameter split over ``tensor`` (a DTensor;
+    ``to_local`` is differentiable), the parameter itself otherwise."""
+    return p.to_local() if isinstance(p, DTensor) else p
+
+
+def _vocab_shard_ids(ids, v_local: int, tp_group):
+    """(ids moved into this rank's block of the vocabulary and clamped to
+    it, and whether each id lies in the block)."""
+    local = ids - collectives.axis_index(tp_group) * v_local
+    inside = (local >= 0) & (local < v_local)
+    return local.clamp(0, v_local - 1), inside
 
 
 class DecoderLayer(nn.Module):
@@ -164,12 +201,16 @@ class DecoderLayer(nn.Module):
     (wo, residual, norm, FFN), with the flash operator between them: the
     backward recomputes both regions but not K1, whose (o, lse) the
     operator saved. The regions sit inside the module, so FSDP2's unshard
-    and reshard hooks on the layer stay outside what is recomputed."""
+    and reshard hooks on the layer stay outside what is recomputed.
+
+    ``tp_group`` and ``seq_group`` (None: no such axis) are set by
+    :func:`set_parallel`."""
 
     def __init__(self, config: Config, device=None):
         super().__init__()
         c = config
         self.config = c
+        self.tp_group = self.seq_group = None
 
         def p(*shape):
             return nn.Parameter(torch.empty(*shape, device=device))
@@ -195,20 +236,27 @@ class DecoderLayer(nn.Module):
     def _qkv(self, h):
         c = self.config
         dt = c.compute_dtype
-        y = _rmsnorm(h, self.attn_norm, c.norm_eps)
+        y = copy_to_tp(_rmsnorm(h, self.attn_norm, c.norm_eps), self.tp_group)
         # heads-major end to end: project straight into the kernels'
-        # [B,H,T,Dh] layout (and fold the output back through wo in _out)
-        wq3 = self.wq.to(dt).reshape(-1, c.n_heads, c.head_dim)
-        wk3 = self.wk.to(dt).reshape(-1, c.n_kv_heads, c.head_dim)
-        wv3 = self.wv.to(dt).reshape(-1, c.n_kv_heads, c.head_dim)
-        q = _rope_bhtd(torch.einsum("btd,dhx->bhtx", y, wq3), c.rope_theta)
-        k = _rope_bhtd(torch.einsum("btd,dhx->bhtx", y, wk3), c.rope_theta)
+        # [B,H,T,Dh] layout (and fold the output back through wo in _out);
+        # under ``tensor`` the weights' shards hold this rank's heads
+        wq3 = _local(self.wq).to(dt).unflatten(-1, (-1, c.head_dim))
+        wk3 = _local(self.wk).to(dt).unflatten(-1, (-1, c.head_dim))
+        wv3 = _local(self.wv).to(dt).unflatten(-1, (-1, c.head_dim))
+        pos = 0
+        if self.seq_group is not None:  # this rank's block starts at a global position
+            pos = collectives.axis_index(self.seq_group) * h.shape[1]
+        q = _rope_bhtd(torch.einsum("btd,dhx->bhtx", y, wq3), c.rope_theta, pos)
+        k = _rope_bhtd(torch.einsum("btd,dhx->bhtx", y, wk3), c.rope_theta, pos)
         v = torch.einsum("btd,dhx->bhtx", y, wv3)
         return q, k, v
 
     def _attn(self, q, k, v):
         c = self.config
         scale = c.head_dim ** -0.5
+        if self.seq_group is not None:
+            return ring_attention(q, k, v, self.seq_group, causal=True, scale=scale,
+                                  layout="bhtd")
         if c.attention_impl == "dense":
             return dense_attention(
                 *(x.transpose(1, 2) for x in (q, k, v)), causal=True, scale=scale
@@ -218,21 +266,24 @@ class DecoderLayer(nn.Module):
     def _out(self, h, attn):
         c = self.config
         dt = c.compute_dtype
-        wo3 = self.wo.to(dt).reshape(c.n_heads, c.head_dim, -1)
-        h = h + torch.einsum("bhtx,hxd->btd", attn, wo3)
-        y = _rmsnorm(h, self.mlp_norm, c.norm_eps)
-        gate = nn.functional.silu(y @ self.w_gate.to(dt))
-        up = y @ self.w_up.to(dt)
-        return h + (gate * up) @ self.w_down.to(dt)
+        tp = self.tp_group
+        wo3 = _local(self.wo).to(dt).unflatten(0, (-1, c.head_dim))
+        h = h + reduce_from_tp(torch.einsum("bhtx,hxd->btd", attn, wo3), tp)
+        y = copy_to_tp(_rmsnorm(h, self.mlp_norm, c.norm_eps), tp)
+        gate = nn.functional.silu(y @ _local(self.w_gate).to(dt))
+        up = y @ _local(self.w_up).to(dt)
+        return h + reduce_from_tp((gate * up) @ _local(self.w_down).to(dt), tp)
 
 
 class Llama(nn.Module):
-    """tokens [B,T] → logits [B,T,vocab] f32 (or final-norm features)."""
+    """tokens [B,T] → logits [B,T,vocab] f32 (or final-norm features).
+    Under ``tensor`` the logits are this rank's block of the vocabulary."""
 
     def __init__(self, config: Config, device=None):
         super().__init__()
         c = config
         self.config = c
+        self.tp_group = self.seq_group = None
         self.embed = nn.Parameter(torch.empty(c.vocab, c.d_model, device=device))
         self.layers = nn.ModuleList(DecoderLayer(c, device) for _ in range(c.n_layers))
         self.final_norm = nn.Parameter(torch.ones(c.d_model, device=device))
@@ -241,13 +292,29 @@ class Llama(nn.Module):
     def forward(self, tokens, return_features: bool = False):
         c = self.config
         dt = c.compute_dtype
-        x = self.embed.to(dt)[tokens]
+        x = self._embed(tokens, _local(self.embed).to(dt))
         for layer in self.layers:
             x = layer(x)
         x = _rmsnorm(x, self.final_norm, c.norm_eps)
         if return_features:
             return x
-        return (x @ self.lm_head.to(dt)).float()
+        return (copy_to_tp(x, self.tp_group) @ _local(self.lm_head).to(dt)).float()
+
+    def _embed(self, tokens, table):
+        """The rows of ``tokens``. Under ``tensor`` each rank holds a block of
+        the vocabulary and looks up the tokens in it (zeros for the others),
+        and the ranks' rows are summed."""
+        if self.tp_group is None:
+            return table[tokens]
+        ids, inside = _vocab_shard_ids(tokens, table.shape[0], self.tp_group)
+        return reduce_from_tp(table[ids] * inside[..., None].to(table.dtype), self.tp_group)
+
+
+def set_parallel(model: Llama, *, tp_group=None, seq_group=None) -> None:
+    """Give the model the process groups of its ``tensor`` and ``sequence``
+    axes (None: no such axis); parallel/sharding.py calls it."""
+    for m in (model, *model.layers):
+        m.tp_group, m.seq_group = tp_group, seq_group
 
 
 def init(
@@ -277,37 +344,66 @@ def apply(model: Llama, tokens, *, return_features: bool = False):
     return model(tokens, return_features=return_features)
 
 
-def _chunk_nll(xc, head, yc, vc):
-    logits = (xc @ head.to(xc.dtype)).float()
-    ll = torch.log_softmax(logits, dim=-1).gather(-1, yc[..., None])[..., 0]
-    return torch.where(vc, ll, 0.0).sum()
+def _token_ll(logits, y, tp_group):
+    """log softmax(logits)[y] in f32. Under ``tensor`` the logits are this
+    rank's block of the vocabulary: the max (detached: any shift gives the
+    same value) and the sum of exps are taken over the ranks, and the
+    target's logit comes from the rank whose block holds it."""
+    if tp_group is None:
+        return torch.log_softmax(logits, dim=-1).gather(-1, y[..., None])[..., 0]
+    m = collectives.pmax(logits.detach().amax(-1), tp_group)
+    sum_exp = reduce_from_tp(torch.exp(logits - m[..., None]).sum(-1), tp_group)
+    ids, inside = _vocab_shard_ids(y, logits.shape[-1], tp_group)
+    target = torch.where(inside, logits.gather(-1, ids[..., None])[..., 0], 0.0)
+    return reduce_from_tp(target, tp_group) - m - torch.log(sum_exp)
+
+
+def _chunk_nll(xc, head, yc, vc, tp_group=None):
+    logits = (copy_to_tp(xc, tp_group) @ _local(head).to(xc.dtype)).float()
+    return torch.where(vc, _token_ll(logits, yc, tp_group), 0.0).sum()
 
 
 def loss_fn(model: Llama, batch: Dict[str, torch.Tensor], *, ce_chunk: int = 2048):
     """Next-token cross-entropy; position t predicts token t+1, the last
     position is dropped. Above ``ce_chunk`` positions the loss runs over
     checkpointed sequence chunks, so the f32 logits of one chunk exist at a
-    time (the JAX package's roll-shift and validity mask)."""
+    time (the JAX package's roll-shift and validity mask).
+
+    Over a ``sequence`` axis the batch is this rank's block of T with its
+    ``targets`` and ``valid`` mask (ops/data.py), and the loss is the
+    block's sum over the count of its rows' predictions: the blocks' losses
+    sum to the rows' mean (ops/trainer.py scales them by the sequence size
+    and averages)."""
     tokens = batch["tokens"]
     b, t = tokens.shape
+    tp = model.tp_group
+    if "targets" in batch:
+        y, valid = batch["targets"], batch["valid"]
+        n_seq = 1 if model.seq_group is None else collectives.axis_size(model.seq_group)
+        n = t * n_seq - 1
+    elif model.seq_group is not None:
+        raise ValueError("a sequence-sharded model needs the batch's targets and valid "
+                         "mask (ops/data.py make_global_batch with the mesh)")
+    else:
+        y, valid, n = None, None, t - 1  # real prediction positions
     if t - 1 <= ce_chunk:
         logits = apply(model, tokens)
-        lp = torch.log_softmax(logits[:, :-1], dim=-1)
-        return -lp.gather(-1, tokens[:, 1:, None]).mean()
+        if y is None:  # the whole sequence: drop the last position
+            return -_token_ll(logits[:, :-1], tokens[:, 1:], tp).mean()
+        return -torch.where(valid, _token_ll(logits, y, tp), 0.0).sum() / (b * n)
 
     feats = apply(model, tokens, return_features=True)
-    y = torch.roll(tokens, -1, dims=1)
-    n = t - 1  # real prediction positions
+    if y is None:
+        y = torch.roll(tokens, -1, dims=1)
+        valid = (torch.arange(t, device=tokens.device) < n)[None, :]
     total = feats.new_zeros((), dtype=torch.float32)
     for c0 in range(0, t, ce_chunk):
-        xc, yc = feats[:, c0:c0 + ce_chunk], y[:, c0:c0 + ce_chunk]
-        vc = (torch.arange(c0, c0 + xc.shape[1], device=tokens.device) < n)[None, :]
+        args = (feats[:, c0:c0 + ce_chunk], model.lm_head, y[:, c0:c0 + ce_chunk],
+                valid[:, c0:c0 + ce_chunk], tp)
         if torch.is_grad_enabled():
-            total = total + checkpoint(
-                _chunk_nll, xc, model.lm_head, yc, vc, use_reentrant=False
-            )
+            total = total + checkpoint(_chunk_nll, *args, use_reentrant=False)
         else:
-            total = total + _chunk_nll(xc, model.lm_head, yc, vc)
+            total = total + _chunk_nll(*args)
     return -total / (b * n)
 
 

@@ -9,7 +9,9 @@ methods and semantics:
   :meth:`CheckpointManager.wait` (the sanctioned seams) blocks on it;
 - ``restore`` is reshard-on-load: the tensors of the template state (its
   DTensors laid out on the *current* mesh) are filled in place, so a
-  checkpoint written by 4 ranks restores onto 2;
+  checkpoint written by 4 ranks restores onto 2, and one written at
+  ``fsdp=2,tensor=2`` restores at ``tensor=2`` or at ``fsdp=2`` (DCP
+  saves each shard at its offset in the global tensor);
 - step directories are ``<dir>/<step>/``, as orbax writes them.
 
 A step is committed when its ``.metadata`` file exists: DCP writes it last,

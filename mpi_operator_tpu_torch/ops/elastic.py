@@ -40,7 +40,7 @@ from mpi_operator_tpu_torch.runtime import bootstrap
 from mpi_operator_tpu_torch.runtime.stepstats import StepStatsRecorder
 
 # EX_TEMPFAIL: the "re-run me" exit code workers use on membership change.
-EXIT_RESTART = 75
+EXIT_RESTART = bootstrap.EXIT_RESTART
 
 ENV_CONFIG_DIR = "TPUJOB_CONFIG_DIR"
 HOSTFILE_NAME = "hostfile"

@@ -19,14 +19,27 @@ arrays; in place saves a copy of the whole model per step). The optimizer
 state is keyed by parameter name, so a checkpoint does not depend on the
 order of the parameters.
 
-With a mesh (``Trainer(..., mesh=...)``) the model is sharded with FSDP2
-(parallel/sharding.py): parameters and moments are DTensors, each rank
-holding its shard, and the update runs on the local shards, which is
-exact for an elementwise update. FSDP2 averages the sharded gradients over
-the ranks; the trainer averages the replicated ones (the norm scales) and
-the reported loss, which is then the global batch's mean, as JAX's
-replicated loss is. The global norm sums the squares of every shard over
-the mesh, so clipping triggers at the same step as on one device.
+With a mesh (``Trainer(..., mesh=...)``) the model is sharded over
+``tensor`` and with FSDP2 (parallel/sharding.py): parameters and moments
+are DTensors, each rank holding its shard, and the update runs on the
+local shards, which is exact for an elementwise update. The gradient is
+the global batch's, as JAX's is. Over ``sequence`` a rank's loss is its
+block's share of its rows' mean (models/llama.py); the trainer takes the
+gradient of that share times the ``sequence`` size, so that every
+reduction is a mean over the ranks that hold a copy:
+
+- FSDP2 averages the sharded gradients over the batch shards (``data`` ×
+  ``fsdp``); after the backward the trainer averages them over
+  ``sequence``, where the parameters are whole (the rules shard nothing
+  there), in one all-reduce of one flat buffer;
+- the replicated gradients (the norm scales, whole on every ``tensor``
+  rank) and the reported loss are averaged over every rank: the
+  ``tensor`` ranks hold equal copies.
+
+The reported loss is then the global batch's mean, as JAX's replicated
+loss is. The global norm sums the squares of every shard over the mesh
+(each ``fsdp`` and ``tensor`` shard once) and of each replicated tensor
+once, so clipping triggers at the same step as on one device.
 """
 
 from __future__ import annotations
@@ -89,8 +102,10 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares over every tensor, in f32. A DTensor's
-    squares are summed over its shards on every rank of its mesh (one
-    reduction for all of them; they must share one mesh)."""
+    squares are summed over its shards on every rank of its mesh, over the
+    mesh dimensions that shard it (``fsdp``, ``tensor``) and not those that
+    replicate it (one reduction for all of them; they must share one mesh).
+    A plain tensor is whole on every rank and counts once."""
     plain = [t for t in tensors if not isinstance(t, DTensor)]
     sharded = [t for t in tensors if isinstance(t, DTensor)]
     total = sum(t.float().pow(2).sum() for t in plain)
@@ -104,6 +119,21 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _pmean_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """In place: the mean over ``group``'s ranks (every rank by default; a
+    sum, then a division: gloo has no AVG)."""
+    dist.all_reduce(t, group=group)
+    return t.div_(dist.get_world_size(group))
+
+
+def _pmean_flat_(tensors, group) -> None:
+    """:func:`_pmean_` of each tensor, in one all-reduce of one flat
+    buffer."""
+    flat = _pmean_(torch.cat([t.reshape(-1) for t in tensors]), group)
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
+
+
 def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     """optax's ``clip_by_global_norm``, in place: each gradient becomes
     ``g / norm * max_norm`` where ``norm >= max_norm`` and stays as it is
@@ -113,12 +143,6 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     for g in grads:
         _local(g).mul_(factor)
     return norm
-
-
-def _mean_over_ranks_(t: torch.Tensor) -> torch.Tensor:
-    """All-reduce to the mean over every rank, in place (gloo has no AVG)."""
-    dist.all_reduce(t)
-    return t.div_(dist.get_world_size())
 
 
 class Trainer:
@@ -137,6 +161,8 @@ class Trainer:
         self.config = config
         self.mesh = mesh
         self._replicated = []
+        self._seq_group = None  # the class docstring says what it reduces
+        self._loss_scale = 1  # the sequence size
         if config.remat:
             inner = loss_fn
 
@@ -151,8 +177,12 @@ class Trainer:
         c = self.config
         if self.mesh is not None:
             from mpi_operator_tpu_torch.parallel.sharding import shard_model
+            from mpi_operator_tpu_torch.runtime.topology import AXIS_SEQ, axis_group
 
             self._replicated = shard_model(model, self.mesh)
+            self._seq_group = axis_group(self.mesh, AXIS_SEQ)
+            if self._seq_group is not None:
+                self._loss_scale = dist.get_world_size(self._seq_group)
         params = dict(model.named_parameters())
 
         def zeros(dtype=None):
@@ -175,14 +205,18 @@ class Trainer:
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
-        loss = self._loss_fn(model, batch)
+        loss = self._loss_fn(model, batch) * self._loss_scale
         loss.backward()
         metrics = {"loss": loss.detach()}
         with torch.no_grad():
             if self.mesh is not None:
-                metrics["loss"] = _mean_over_ranks_(metrics["loss"].clone())
+                metrics["loss"] = _pmean_(metrics["loss"].clone())
+                if self._seq_group is not None:
+                    replicated = set(self._replicated)
+                    _pmean_flat_([_local(p.grad) for p in params.values() if p not in replicated],
+                                 self._seq_group)
                 for p in self._replicated:
-                    _mean_over_ranks_(p.grad)
+                    _pmean_(p.grad)
             grads = {n: p.grad for n, p in params.items()}
             if c.grad_clip_norm > 0:
                 metrics["grad_norm"] = clip_by_global_norm_(list(grads.values()),

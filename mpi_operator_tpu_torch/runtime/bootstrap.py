@@ -22,8 +22,12 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import multiprocessing
 import os
-from typing import Mapping, Optional, Tuple, Union
+import signal
+import socket
+import time
+from typing import Callable, List, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -44,6 +48,8 @@ ENV_NUM_SLICES = "TPUJOB_NUM_SLICES"
 # --ckpt-dir); a restarted gang may land on other nodes, so checkpoints live
 # under it and never on a node-local path
 ENV_CKPT_DIR = "TPUJOB_CKPT_DIR"
+# a rank's retryable exit: a membership change or SIGTERM (ops/elastic.py)
+EXIT_RESTART = 75
 
 
 def _parse_shape(s: str) -> Tuple[int, ...]:
@@ -201,6 +207,51 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _active = None
+
+
+def free_port() -> int:
+    """A free TCP port on localhost, for a one-host gang's rendezvous."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_local_ranks(target: Callable, n: int, args: tuple = (),
+                    timeout: Optional[float] = None) -> List[Optional[int]]:
+    """Run ``target(local_rank, *args)`` in ``n`` processes (the ``spawn``
+    start method: each starts fresh, as a rank must) and return their exit
+    codes. SIGTERM is forwarded to them; 10 s after one fails, or at
+    ``timeout`` seconds, the rest are killed (a rank that died leaves the
+    others waiting in a collective), and a killed rank's code is negative."""
+    spawn = multiprocessing.get_context("spawn")
+    procs = [spawn.Process(target=target, args=(r, *args)) for r in range(n)]
+
+    def forward(sig, frame):
+        for p in procs:
+            if p.pid is not None and p.is_alive():
+                os.kill(p.pid, sig)
+
+    previous = signal.signal(signal.SIGTERM, forward)
+    deadline = None if timeout is None else time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.start()
+        failed_at = None
+        while any(p.is_alive() for p in procs):
+            for p in procs:
+                p.join(timeout=0.2)
+            if failed_at is None and any(p.exitcode not in (None, 0, EXIT_RESTART)
+                                         for p in procs):
+                failed_at = time.monotonic()
+            now = time.monotonic()
+            if (failed_at is not None and now - failed_at > 10.0) or \
+                    (deadline is not None and now > deadline):
+                for p in procs:
+                    if p.is_alive():
+                        p.kill()
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+    return [p.exitcode for p in procs]
 
 
 def process_index() -> int:

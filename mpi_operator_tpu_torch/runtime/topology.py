@@ -15,8 +15,9 @@ order.
 - ``expert``    MoE expert parallelism
 - ``pipe``      pipeline stages
 
-The port shards over ``data`` and ``fsdp`` only (parallel/sharding.py);
-the other four come with later slices.
+The port shards over ``data``, ``fsdp``, ``tensor`` and ``sequence``
+(parallel/sharding.py, parallel/ring_attention.py); ``expert`` and
+``pipe`` come with later slices.
 """
 
 from __future__ import annotations
@@ -169,6 +170,21 @@ def build_mesh(plan: MeshPlan, device_type: str):
 def mesh_sizes(mesh) -> Dict[str, int]:
     """Axis name → size of a ``DeviceMesh``."""
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def axis_group(mesh, axis: str):
+    """The process group of ``axis`` when the mesh has it above size 1, else
+    None (nothing to communicate over)."""
+    if mesh is None or mesh_sizes(mesh).get(axis, 1) == 1:
+        return None
+    return mesh.get_group(axis)
+
+
+def batch_mesh(mesh):
+    """The sub-mesh FSDP2 runs over: ``fsdp``, with ``data`` as HSDP's
+    replicate dimension when it is above 1. ``tensor`` and ``sequence``
+    ranks of one batch shard hold the same parameter shards."""
+    return mesh[AXIS_FSDP] if mesh_sizes(mesh)[AXIS_DATA] == 1 else mesh[AXIS_DATA, AXIS_FSDP]
 
 
 def mesh_from_context(ctx, plan: Optional[MeshPlan] = None, device_type: str = "cuda"):

@@ -1,5 +1,6 @@
-"""Llama decoder training worker: one rank per CUDA device, sharded with
-FSDP2 over the job's mesh, elastic through checkpoints.
+"""Llama decoder training worker: one rank per CUDA device, sharded over the
+job's mesh (tensor parallelism, ring attention, FSDP2), elastic through
+checkpoints.
 
 Port of ``examples/llama_worker.py``. Config via the same env, so one
 manifest runs either worker:
@@ -14,10 +15,12 @@ manifest runs either worker:
   LLAMA_SAVE_EVERY / LLAMA_CHECK_EVERY  elastic cadence (default 2 / 10)
   LLAMA_STEP_SLEEP  seconds of pacing between steps (default 0)
   LLAMA_PROGRESS_EVERY  print "progress: batch N" every N batches (default off)
-  LLAMA_MESH    parallelism spec, e.g. "fsdp=2" or "data=2,fsdp=2"
+  LLAMA_MESH    parallelism spec, e.g. "fsdp=2" or "fsdp=2,tensor=2,sequence=2"
                 (default: pure data parallelism over every rank). The port
-                shards over data and fsdp; tensor, sequence, expert and pipe
-                above 1 raise. LLAMA_MESH_DCN adds slice counts ("data=2").
+                shards over data, fsdp, tensor and sequence; expert and pipe
+                above 1 raise, and so do heads that tensor does not divide
+                and a sequence that sequence does not divide, before any
+                rendezvous. LLAMA_MESH_DCN adds slice counts ("data=2").
 
 The executor launches one process per host. It runs one rank per local
 chip: with ``chips_per_host`` above 1 it spawns that many ranks (the
@@ -38,13 +41,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import multiprocessing
 import os
-import signal
-import socket
 import sys
 import time
-from typing import Mapping, Optional, Union
+from typing import Callable, Mapping, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -54,9 +54,15 @@ from mpi_operator_tpu_torch.models import llama
 from mpi_operator_tpu_torch.ops import Trainer, TrainerConfig
 from mpi_operator_tpu_torch.ops.data import make_global_batch, synthetic_tokens
 from mpi_operator_tpu_torch.ops.elastic import EXIT_RESTART, ElasticConfig, run_elastic
-from mpi_operator_tpu_torch.parallel.sharding import refuse_unported_axes
+from mpi_operator_tpu_torch.parallel.sharding import check_head_split, refuse_unported_axes
 from mpi_operator_tpu_torch.runtime import bootstrap
-from mpi_operator_tpu_torch.runtime.topology import MeshPlan, mesh_from_context, mesh_sizes
+from mpi_operator_tpu_torch.runtime.topology import (
+    AXIS_SEQ,
+    AXIS_TENSOR,
+    MeshPlan,
+    mesh_from_context,
+    mesh_sizes,
+)
 
 CONFIGS = {
     "tiny": llama.tiny,
@@ -69,8 +75,12 @@ def main(
     device: Union[str, torch.device, None] = None,
     environ: Optional[Mapping[str, str]] = None,
     local_rank: int = 0,
+    on_step: Optional[Callable[[int], None]] = None,
 ) -> dict:
-    """Train and return the JSON record (printed by host 0's first rank)."""
+    """Train and return the JSON record (printed by host 0's first rank).
+    ``on_step``, where given, is called with i before step i of the plain
+    loop and with the step count after its last step (profile_llama's
+    per-rank timing of a gang)."""
     env = os.environ if environ is None else environ
     mesh_spec = env.get("LLAMA_MESH", "").strip()
     dcn_spec = env.get("LLAMA_MESH_DCN", "").strip()
@@ -78,7 +88,14 @@ def main(
         raise SystemExit("LLAMA_MESH_DCN requires LLAMA_MESH to be set")
     plan = MeshPlan.parse(mesh_spec, dcn_spec) if mesh_spec else None
     if plan is not None:
-        refuse_unported_axes(dict(plan.ordered()))
+        sizes = dict(plan.ordered())
+        refuse_unported_axes(sizes)
+        cfg = CONFIGS[env.get("LLAMA_CONFIG", "tiny")]()
+        check_head_split(cfg.n_heads, cfg.n_kv_heads, sizes.get(AXIS_TENSOR, 1))
+        n_seq = sizes.get(AXIS_SEQ, 1)
+        if int(env.get("LLAMA_SEQ", "64")) % n_seq:
+            raise ValueError(f"LLAMA_SEQ={env.get('LLAMA_SEQ', '64')} does not split over "
+                             f"sequence={n_seq}")
     ctx = bootstrap.context_from_env(env)
     # explicit manifest path wins; otherwise the per-job directory on the
     # shared checkpoint volume the node agent advertised (--ckpt-dir)
@@ -86,12 +103,12 @@ def main(
     device = bootstrap.initialize(ctx, device=device, local_rank=local_rank,
                                   group=plan is not None or bool(ckpt_dir))
     try:
-        return _train(env, ctx, device, plan, ckpt_dir, local_rank)
+        return _train(env, ctx, device, plan, ckpt_dir, local_rank, on_step)
     finally:
         bootstrap.shutdown()
 
 
-def _train(env, ctx, device, plan, ckpt_dir, local_rank) -> dict:
+def _train(env, ctx, device, plan, ckpt_dir, local_rank, on_step) -> dict:
     gang = dist.is_initialized()
     mesh = mesh_from_context(ctx, plan, device.type) if gang else None
     cfg = CONFIGS[env.get("LLAMA_CONFIG", "tiny")]()
@@ -138,9 +155,13 @@ def _train(env, ctx, device, plan, ckpt_dir, local_rank) -> dict:
         losses, restore_s = result.losses, result.restore_s
     else:
         state, it, losses = init_state(), batches(), []
-        for _ in range(steps):
+        for i in range(steps):
+            if on_step is not None:
+                on_step(i)
             state, metrics = trainer.train_step(state, next(it))
             losses.append(metrics["loss"])
+        if on_step is not None:
+            on_step(steps)
         losses = [float(x) for x in losses]  # waits for the device
         outcome, last_step, start_step = "done", steps, 0
     dt = time.perf_counter() - t0
@@ -175,12 +196,6 @@ def _rank_main(local_rank: int, device: str) -> None:
     sys.exit(exit_code(main(device=device, local_rank=local_rank)))
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _combined_exit(codes) -> int:
     """75 if any rank asked for a restart, else the first non-zero code."""
     if EXIT_RESTART in codes:
@@ -196,30 +211,8 @@ def run_host(device: Optional[str] = None) -> int:
     if local <= 1:
         return exit_code(main(device=device))
     if ctx.num_hosts == 1 and not ctx.coordinator_address:
-        os.environ[bootstrap.ENV_COORDINATOR] = f"127.0.0.1:{_free_port()}"
-    spawn = multiprocessing.get_context("spawn")
-    procs = [spawn.Process(target=_rank_main, args=(r, device)) for r in range(local)]
-
-    def forward(sig, frame):
-        for p in procs:
-            if p.pid is not None and p.is_alive():
-                os.kill(p.pid, sig)
-
-    signal.signal(signal.SIGTERM, forward)
-    for p in procs:
-        p.start()
-    failed_at = None
-    while any(p.is_alive() for p in procs):
-        for p in procs:
-            p.join(timeout=0.2)
-        if failed_at is None and any(p.exitcode not in (None, 0, EXIT_RESTART) for p in procs):
-            failed_at = time.monotonic()
-        # a rank that died leaves the others in a collective: end them
-        if failed_at is not None and time.monotonic() - failed_at > 10.0:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-    return _combined_exit([p.exitcode for p in procs])
+        os.environ[bootstrap.ENV_COORDINATOR] = f"127.0.0.1:{bootstrap.free_port()}"
+    return _combined_exit(bootstrap.run_local_ranks(_rank_main, local, (device,)))
 
 
 if __name__ == "__main__":

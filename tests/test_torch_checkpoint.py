@@ -3,6 +3,10 @@
 - Reshard on load: a checkpoint of a 4-rank ``data=2,fsdp=2`` gang restores
   onto a 2-rank ``fsdp=2`` gang with every parameter and moment bitwise
   equal (ranks are fresh processes, gloo on the CPU).
+- Across ``tensor`` sizes: a checkpoint of a ``fsdp=2,tensor=2`` gang
+  restores onto ``tensor=2`` and onto ``fsdp=2``; the restored runs' losses
+  equal the unbroken run's within 1e-6 relative (the tensor-parallel sums
+  round in another order).
 - The elastic full cycle (≙ tests/test_elastic.py's): a membership change
   checkpoints and returns "restart"; the next incarnation restores and runs
   to "done"; the losses of the two equal an uninterrupted run's, bitwise.
@@ -45,6 +49,21 @@ def _rank(local_rank, args):
                       mesh=mesh)
     state = trainer.init_state(model)
     mgr = CheckpointManager(args["dir"])
+    if args["phase"] in ("train", "resume"):
+        stream = synthetic_tokens(global_batch=4, seq_len=16, vocab=CFG.vocab)
+        if args["phase"] == "resume":
+            state = mgr.restore(state)
+        start, losses = state.step, []
+        while state.step < args["steps"]:
+            state, m = trainer.train_step(state, make_global_batch(next(stream), "cpu", mesh))
+            losses.append(m["loss"].item())
+            if state.step == args.get("save_at"):
+                mgr.save(state.step, state, force=True)
+        mgr.wait()
+        if dist.get_rank() == 0:
+            print(json.dumps({"start": start, "losses": losses}))
+        bootstrap.shutdown()
+        return
     if args["phase"] == "save":
         stream = synthetic_tokens(global_batch=4, seq_len=16, vocab=CFG.vocab)
         for _ in range(2):
@@ -82,6 +101,18 @@ def test_four_rank_checkpoint_restores_bitwise_on_two_ranks(tmp_path):
     for name in a:
         assert np.array_equal(a[name], b[name]), name
     assert os.path.exists(tmp_path / "ckpt" / "2" / ".metadata")
+
+
+def test_tensor_parallel_checkpoint_restores_on_other_tensor_sizes(tmp_path):
+    common = {"dir": str(tmp_path / "ckpt"), "steps": 4}
+    unbroken = run_ranks(__file__, 4, {**common, "phase": "train", "plan": "fsdp=2,tensor=2",
+                                       "seed": 0, "save_at": 2})
+    assert unbroken["start"] == 0 and len(unbroken["losses"]) == 4
+    for plan in ("tensor=2", "fsdp=2"):
+        resumed = run_ranks(__file__, 2, {**common, "phase": "resume", "plan": plan, "seed": 1})
+        assert resumed["start"] == 2, plan
+        np.testing.assert_allclose(resumed["losses"], unbroken["losses"][2:], rtol=1e-6,
+                                   err_msg=plan)
 
 
 def _batches():

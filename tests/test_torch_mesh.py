@@ -1,6 +1,7 @@
 """The port's copies of the JAX package's mesh, sharding-rule and step-stats
-pieces, held to the originals; and the refusals of what the port does not
-shard over yet.
+pieces, held to the originals; the refusals of what the port does not
+shard over yet (``expert``, ``pipe``), and the checks on what it now does
+(``tensor``, ``sequence``).
 
 - ``MeshPlan`` (parse, ordered, sizes, errors), ``_hybrid_flat_mesh``'s
   slice-major layout and ``mesh_from_context``'s checks;
@@ -133,19 +134,49 @@ def _fake_mesh(**sizes):
 
 @pytest.mark.parametrize("axis", ["tensor", "sequence", "expert", "pipe"])
 def test_shard_model_refuses_unported_axes(axis):
+    """``expert`` and ``pipe`` raise, naming their slice. ``tensor`` and
+    ``sequence`` are ported (the multi-rank tests in
+    tests/test_torch_tensor_parallel.py shard over them): the rules send
+    the head, FFN and vocab dimensions to ``tensor`` and nothing to
+    ``sequence``, and heads that ``tensor`` does not divide raise
+    ``ValueError`` before anything is sharded."""
+    import dataclasses
+
     model = tllama.Llama(tllama.tiny(), device="meta")
-    with pytest.raises(NotImplementedError, match=f"{axis}=2 is not ported"):
-        sharding.shard_model(model, _fake_mesh(data=1, fsdp=1, **{axis: 2}))
+    if axis in ("expert", "pipe"):
+        with pytest.raises(NotImplementedError, match=f"{axis}=2 is not ported"):
+            sharding.shard_model(model, _fake_mesh(data=1, fsdp=1, **{axis: 2}))
+        return
+    sharding.refuse_unported_axes({axis: 2})
+    names = ("data", "fsdp", axis)
+    axes = tllama.logical_axes(tllama.tiny())
+    split = {n: sharding.shard_dim(a, names, axis) for n, a in axes.items()}
+    if axis == "tensor":
+        assert {n.split(".")[-1]: d for n, d in split.items()} == {
+            "embed": 0, "lm_head": 1, "final_norm": None, "attn_norm": None, "mlp_norm": None,
+            "wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_gate": 1, "w_up": 1, "w_down": 0}
+    else:
+        assert set(split.values()) == {None}
+    odd = tllama.Llama(dataclasses.replace(tllama.tiny(), n_heads=6, n_kv_heads=3), device="meta")
+    with pytest.raises(ValueError, match="tensor=2 does not divide n_heads=6 and n_kv_heads=3"):
+        sharding.shard_model(odd, _fake_mesh(data=1, fsdp=1, **{axis: 2, "tensor": 2}))
 
 
 def test_flash_attention_mesh_runs_locally_and_refuses_tensor_parallel():
+    """With a mesh the inputs are this rank's batch and, over ``tensor``, its
+    heads: attention runs on them as they are. Local heads that do not form
+    whole GQA groups, and a sequence split over ``sequence`` (the ring's
+    job), raise ``ValueError``."""
     q = torch.randn(1, 16, 4, 16)
     k = v = torch.randn(1, 16, 2, 16)
-    with pytest.raises(NotImplementedError, match="tensor-parallel slice"):
-        tfa.flash_attention(q, k, v, mesh=_fake_mesh(data=1, fsdp=2, tensor=2))
-    local = tfa.flash_attention(q, k, v, mesh=_fake_mesh(data=2, fsdp=2), block_q=16,
-                                block_k=16)
-    assert torch.equal(local, tfa.flash_attention(q, k, v, block_q=16, block_k=16))
+    alone = tfa.flash_attention(q, k, v, block_q=16, block_k=16)
+    for mesh in (_fake_mesh(data=2, fsdp=2), _fake_mesh(data=1, fsdp=2, tensor=2)):
+        local = tfa.flash_attention(q, k, v, mesh=mesh, block_q=16, block_k=16)
+        assert torch.equal(local, alone)
+    with pytest.raises(ValueError, match="3 q heads do not group over its 2 kv heads"):
+        tfa.flash_attention(q[:, :, :3], k, v, mesh=_fake_mesh(data=1, fsdp=2, tensor=2))
+    with pytest.raises(ValueError, match="use ring_attention"):
+        tfa.flash_attention(q, k, v, mesh=_fake_mesh(data=1, fsdp=1, sequence=2))
 
 
 class _Clock:

@@ -5,7 +5,8 @@
 - Its entry points run on CUDA unless the caller asks for the CPU: without
   a card they raise; they never fall back to the CPU.
 - A gang without a coordinator address, a mesh axis the port does not shard
-  over yet and a DCN spec without a mesh are refused before any rendezvous.
+  over yet, a plan that cannot split the model and a DCN spec without a
+  mesh are refused before any rendezvous.
 - The copies it keeps of the JAX package's framework-free pieces (env
   names, context parsing, the token stream) agree with the originals.
 """
@@ -119,8 +120,24 @@ def test_bench_module_exits_nonzero_without_cuda():
     ("pipe", "pipeline"),
 ])
 def test_worker_refuses_unported_mesh_axes(axis, slice_name):
-    with pytest.raises(NotImplementedError, match=f"{axis}=2 is not ported.*{slice_name}"):
+    """``expert`` and ``pipe`` raise, naming their slice. ``tensor`` and
+    ``sequence`` came with the tensor-parallel and ring-attention slices:
+    the plan passes the port's checks and meets the gang's size instead (one
+    rank here, four wanted); heads or a sequence that the axis does not
+    divide raise ``ValueError`` before any rendezvous."""
+    if axis in ("expert", "pipe"):
+        with pytest.raises(NotImplementedError, match=f"{axis}=2 is not ported.*{slice_name}"):
+            llama_worker.main(device="cpu", environ={"LLAMA_MESH": f"fsdp=2,{axis}=2"})
+        assert not torch.distributed.is_initialized()
+        return
+    with pytest.raises(ValueError, match="mesh plan wants 4 devices"):
         llama_worker.main(device="cpu", environ={"LLAMA_MESH": f"fsdp=2,{axis}=2"})
+    assert not torch.distributed.is_initialized()
+    # tiny() has 4 q heads and 2 kv heads; LLAMA_SEQ defaults to 64
+    bad = {"tensor": ("tensor=4", "tensor=4 does not divide"),
+           "sequence": ("sequence=3", "LLAMA_SEQ=64 does not split over sequence=3")}[axis]
+    with pytest.raises(ValueError, match=bad[1]):
+        llama_worker.main(device="cpu", environ={"LLAMA_MESH": bad[0]})
     assert not torch.distributed.is_initialized()
 
 
@@ -138,6 +155,50 @@ def test_worker_trains_tiny_on_the_cpu_when_asked(capsys):
     assert line == record
     assert line["workload"] == "llama" and line["outcome"] == "done" and line["step"] == 3
     assert line["backend"] == "cpu" and math.isfinite(line["loss"])
+
+
+def test_worker_times_its_steps_and_profiles_the_last_ones_when_asked(tmp_path):
+    """profile_llama's gang reading drives the worker through its ``on_step``
+    hook: steps 2-3 timed, 4-5 profiled, one record per rank."""
+    from mpi_operator_tpu_torch import profile_llama
+
+    got = profile_llama.gang(1, {"LLAMA_STEPS": "6"}, str(tmp_path), device="cpu",
+                             timeout=300)
+    (rec,) = got["ranks"]
+    assert rec == json.loads((tmp_path / "rank0.json").read_text())
+    assert rec["rank"] == 0 and rec["timed_steps"] == 2 and rec["step_ms"] > 0
+    assert len(rec["losses"]) == 6 and "kernel_launches" in rec and rec["mesh"] == ""
+    assert rec["device_step_ms"] is None  # no CUDA events on the CPU
+    prof = rec["profiled"]
+    assert prof["steps"] == 2 and prof["wall_ms_per_step"] > 0 and prof["top_host_ops_ms_per_step"]
+    assert prof["device_idle_share"] is None  # the CPU run has no device kernels
+    with pytest.raises(ValueError, match="more than 4 steps"):
+        profile_llama._RankProbe(torch.device("cpu"), 4)
+
+
+def test_gang_reading_runs_every_rank_of_a_mesh(tmp_path):
+    from mpi_operator_tpu_torch import profile_llama
+
+    env = {"LLAMA_STEPS": "5", "LLAMA_MESH": "sequence=2", "LLAMA_SEQ": "32"}
+    ranks = profile_llama.gang(2, env, str(tmp_path), device="cpu", timeout=300)["ranks"]
+    assert [r["rank"] for r in ranks] == [0, 1]
+    assert all(r["mesh"] == "sequence=2" and r["timed_steps"] == 1 for r in ranks)
+    assert ranks[0]["losses"] == ranks[1]["losses"]  # the reported loss is the mean
+
+
+def _sleep(local_rank, seconds):
+    import time
+
+    time.sleep(seconds)
+
+
+def test_local_ranks_report_each_exit_code_and_end_at_the_timeout():
+    import time
+
+    assert bootstrap.run_local_ranks(sys.exit, 3) == [0, 1, 2]
+    t0 = time.monotonic()
+    codes = bootstrap.run_local_ranks(_sleep, 1, (60,), timeout=2)
+    assert codes == [-9] and time.monotonic() - t0 < 30
 
 
 def test_env_names_and_context_match_the_jax_package():

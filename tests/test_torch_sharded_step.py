@@ -16,8 +16,10 @@ near its eps into an update difference of up to the learning rate for that
 one element (2 of 4096 elements of one matrix read 2e-5 absolute). With a
 bf16 first moment only the losses and norms are held: flipped bf16
 roundings put the parameters 1.3e-4 (relative norm) from the JAX package's
-after 5 steps on one device already. Beside them, each parameter's shard dimension must be the one the JAX
-``NamedSharding`` shards over ``fsdp``.
+after 5 steps on one device already. Beside them, each parameter's shard
+dimensions must be the ones the JAX ``NamedSharding`` shards over ``fsdp``
+and ``tensor`` (:func:`shard_dims`, :func:`jax_shard_dims`; the ``tensor``
+plans are tests/test_torch_tensor_parallel.py's, with the same helpers).
 """
 
 import json
@@ -75,6 +77,37 @@ def gang(local_rank, plan):
     return mesh_from_context(ctx, MeshPlan.parse(plan), "cpu")
 
 
+def shard_dims(p):
+    """mesh axis → the dimension it shards, of a sharded parameter (axes above
+    size 1 only; FSDP2's and the tensor split's DTensors name their axes)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(p, DTensor):
+        return {}
+    mesh = p.device_mesh
+    return {name: pl.dim for name, pl, size in zip(mesh.mesh_dim_names, p.placements, mesh.shape)
+            if pl.is_shard() and size > 1}
+
+
+def jax_shard_dims(shardings, sizes):
+    """Port parameter name → {mesh axis: dim} of the JAX sharding (axes above
+    size 1; the layer stack's leading axis dropped)."""
+    from mpi_operator_tpu_torch.models.llama import _LAYER_LEAVES, _TOP_LEAVES
+
+    def dims(spec, stacked):
+        out = {}
+        for d, part in enumerate(spec):
+            for axis in (part,) if isinstance(part, str) else (part or ()):
+                if sizes.get(axis, 1) > 1:
+                    out[axis] = d - stacked
+        return out
+
+    out = {name: dims(shardings[g][leaf].spec, 0) for (g, leaf), name in _TOP_LEAVES.items()}
+    for (g, leaf), name in _LAYER_LEAVES.items():
+        out[name] = dims(shardings["layers"][g][leaf].spec, 1)
+    return out
+
+
 def _rank(local_rank, args):
     import dataclasses
 
@@ -88,7 +121,6 @@ def _rank(local_rank, args):
     from mpi_operator_tpu_torch.runtime import bootstrap
 
     mesh = gang(local_rank, args["plan"])
-    fsdp_dim = mesh.mesh_dim_names.index("fsdp")
     cfg = dataclasses.replace(llama.tiny(), compute_dtype=torch.float32,
                               remat_layers=args["remat"])
     model = llama.Llama(cfg, device="cpu")
@@ -96,13 +128,7 @@ def _rank(local_rank, args):
     trainer = Trainer(llama.loss_fn, TrainerConfig(**args["fields"]), mesh=mesh)
     state = trainer.init_state(model)
 
-    def shard_dim(p):
-        if not isinstance(p, DTensor):
-            return None
-        # FSDP2's placements run over its (data, fsdp) mesh: the last is fsdp's
-        return p.placements[-1].dim if mesh.mesh.shape[fsdp_dim] > 1 else None
-
-    placements = {n: shard_dim(p) for n, p in model.named_parameters()}
+    placements = {n: shard_dims(p) for n, p in model.named_parameters()}
     stream = synthetic_tokens(global_batch=BATCH, seq_len=SEQ, vocab=cfg.vocab)
     losses, norms = [], []
     for _ in range(STEPS):
@@ -145,22 +171,6 @@ def _jax_run(plan, fields, tree):
     return losses, norms, tr.params_sharding(), jax.tree.map(np.asarray, state.params)
 
 
-def _jax_fsdp_dims(shardings):
-    """Port parameter name → the dim the JAX sharding puts on ``fsdp``."""
-    from mpi_operator_tpu_torch.models.llama import _LAYER_LEAVES, _TOP_LEAVES
-
-    def dim(spec, stacked):
-        for d, part in enumerate(spec):
-            if part == "fsdp" or (isinstance(part, tuple) and "fsdp" in part):
-                return d - stacked
-        return None
-
-    out = {name: dim(shardings[g][leaf].spec, 0) for (g, leaf), name in _TOP_LEAVES.items()}
-    for (g, leaf), name in _LAYER_LEAVES.items():
-        out[name] = dim(shardings["layers"][g][leaf].spec, 1)
-    return out
-
-
 @pytest.mark.parametrize(
     "plan, fields, tol",
     [
@@ -190,10 +200,12 @@ def test_sharded_step_matches_jax_trainer(plan, fields, tol, tmp_path):
     np.testing.assert_allclose(got["losses"], losses, rtol=tol)
     np.testing.assert_allclose(got["norms"], norms, rtol=tol)
     assert len(norms) == STEPS
-    want_dims = _jax_fsdp_dims(shardings)
+    sizes = {a.split("=")[0]: int(a.split("=")[1]) for a in plan.split(",")}
+    want_dims = jax_shard_dims(shardings, sizes)
     for name, d in got["placements"].items():
         assert d == want_dims[name.split(".")[-1]], name
-    assert got["placements"]["layers.0.wq"] == 0 and got["placements"]["layers.0.wo"] == 1
+    assert got["placements"]["layers.0.wq"] == {"fsdp": 0}
+    assert got["placements"]["layers.0.wo"] == {"fsdp": 1}
     if fields.get("adam_mu_bf16"):
         return
     full = dict(np.load(tmp_path / "out.npz"))
