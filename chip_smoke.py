@@ -20,7 +20,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    path) timed with CUDA events at the model shape, with each kernel's
    TFLOP/s and share of its bound; SDPA's backward alone (dq, dk and dv in
    one call) is the yardstick of the K2 + K3 pair;
-4. reference: a small Llama (head_dim 64, so the kernels take it) on the
+4. reference: a small Llama (head_dim 64; phase 9 runs tiny() at 16) on the
    card against the same weights on the CPU, where the plain versions run:
    loss and gradient norm agree;
 5. main path: ``bench_single_chip()`` (~0.79B params) at seq 2048, batch 4,
@@ -58,10 +58,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the causal (q, k) pairs are the same, so the ratios are what splitting
    T costs (the merges and f32 sums, and grids a quarter the size).
 
+8. small head dims: K1–K3 at D 16 and 32 (the D-64 tiles, columns past D
+   zero-filled by TMA, only D columns stored) against their plain
+   versions with phase 3's ceilings and per-row bound, causal and full, at
+   the worker's ``tiny`` shape (B 2, T 128, H 4, Hkv 2) and at B 4, T 2048,
+   H 16, Hkv 4, where each kernel, its plain version and SDPA at the same D
+   are timed;
+9. the worker as ``examples/llama.yaml`` runs it: ``LLAMA_CONFIG=tiny``
+   (head_dim 16, as it is), batch 2, seq 128, 3 steps, in a subprocess:
+   backend cuda, outcome done, finite losses, each kernel launched;
+10. profiling: the worker with a checkpoint dir and a projected ``profile``
+   request for 2 steps: the step-stats blob acks ``done`` and the capture
+   is a Chrome trace whose events include K1's kernel;
+11. the kernel cache: two processes on one fresh
+   ``TPUJOB_COMPILE_CACHE_DIR`` (``runtime/compile_cache.smoke``): the
+   first builds (misses), the second runs no ``nvcc`` (hits, no misses);
+   both set-up times are printed;
+12. MoE and the pipeline: the MoE layer at the bench widths (d_model 2048,
+   d_ff 7168, 8 experts, 4 x 2048 tokens, bf16) forward and backward,
+   timed, and on 512 tokens against the CPU (3e-2 x max|y| and of each
+   gradient); ``run_pipeline``'s fall-back (no ``pipe`` axis: NCCL puts
+   no two ranks on one card) on the card against the CPU (1e-5). The
+   multi-rank EP and PP steps are ``python -m mpi_operator_tpu_torch.dryrun
+   4`` on four cards.
+
 The line before the last is a JSON object with one entry per kernel (its
-registers and spill bytes per head dim from ptxas, and from phase 7 its
+registers and spill bytes per head dim from ptxas, from phase 7 its
 launches as ``ring_launches`` and the fold-vs-whole times as ``ring_ms`` /
-``ring_whole_ms``, beside its numbers); the last is
+``ring_whole_ms``, and from phase 8 its times at D 16 and 32 as
+``small_d``, beside its numbers); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -106,6 +131,11 @@ TOL_O, TOL_LSE, TOL_GRAD_REL = 3e-2, 1e-3, 3e-2
 # the tight check beside them: worst per-row relative RMS error (_row_err)
 TOL_ROW, ROW_FLOOR = 1e-2, 0.1
 RING_SHAPE, RING_N = (1, 16384, 16, 4, 128), 4  # B, T, H, Hkv, D; ranks of the ring
+HEAD_DIMS = (16, 32, 64, 128)  # what the kernels are compiled at
+SMALL_D = (16, 32)
+# the worker's manifest env (examples/llama.yaml, as the operator test runs it)
+MANIFEST_ENV = {"LLAMA_CONFIG": "tiny", "LLAMA_BATCH": "2", "LLAMA_SEQ": "128",
+                "LLAMA_STEPS": "3"}
 
 
 def _grad_bound(ref) -> float:
@@ -149,13 +179,13 @@ def phase_build() -> dict:
     out = {}
     for wrapper, kernel in CUDA_KERNEL.items():
         regs, spills = {}, {}
-        for d in (64, 128):
+        for d in HEAD_DIMS:
             r = res.get(f"{kernel}<{d}>")
             if r is None:
                 fail(f"ptxas reported nothing for {kernel}<{d}>")
             regs[str(d)] = r["registers"]
             spills[str(d)] = r["spill_stores"] + r["spill_loads"]
-        log(f"[build] {kernel}: registers {regs}, spill bytes {spills} (D64/D128)")
+        log(f"[build] {kernel}: registers {regs}, spill bytes {spills} (per D)")
         out[wrapper] = {"registers": regs, "spill_bytes": spills}
     return out
 
@@ -210,58 +240,62 @@ def _check_has_power(name: str, ref) -> None:
         fail(f"the per-row check would pass {name} with its last quarter of T zeroed")
 
 
+def _check_shape(label: str, shape, causal: bool, seed: int, power: bool = False) -> dict:
+    """K1, K2, K3 and the autograd path at one shape against the plain
+    versions; returns each kernel's worst max abs error. ``power``: also
+    show that the per-row check rejects a zeroed last quarter of T."""
+    from mpi_operator_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _inputs(shape, seed=seed)
+    scale = shape[4] ** -0.5
+    tag = f"{label} {'causal' if causal else 'full'} {shape}"
+    with torch.no_grad():
+        o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, scale)
+        o, lse = fa.flash_fwd_cuda(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        e_o = _check(f"K1 o {tag}", o, o_ref, TOL_O)
+        e_lse = _max_err(lse, lse_ref)
+        log(f"[kernels] K1 lse {tag}: max abs err {e_lse:.3e} (bound {TOL_LSE:.1e})")
+        if not e_lse <= TOL_LSE:
+            fail(f"K1 lse {tag} disagrees with its plain version: {e_lse}")
+        delta = (do.float() * o_ref.float()).sum(-1)
+        args = (q, k, v, do, lse_ref, delta, causal, scale)
+        dq_ref = fa.flash_bwd_dq_plain(*args)
+        dq = fa.flash_bwd_dq_cuda(*args)
+        torch.cuda.synchronize()
+        e_dq = _check(f"K2 dq {tag}", dq, dq_ref, _grad_bound(dq_ref))
+        dk_ref, dv_ref = fa.flash_bwd_dkv_plain(*args)
+        dk, dv = fa.flash_bwd_dkv_cuda(*args)
+        torch.cuda.synchronize()
+        e_dk = _check(f"K3 dk {tag}", dk, dk_ref, _grad_bound(dk_ref))
+        e_dv = _check(f"K3 dv {tag}", dv, dv_ref, _grad_bound(dv_ref))
+        if power:
+            for name, ref in (("o", o_ref), ("dq", dq_ref), ("dk", dk_ref), ("dv", dv_ref)):
+                _check_has_power(f"{name} {tag}", ref)
+    # the autograd path: flash_attention forward + backward
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(qg, kg, vg, causal=causal, scale=scale, layout="bhtd")
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        _check(f"autograd o {tag}", out, o_ref, TOL_O)
+        for gname, got, ref in zip(("dq", "dk", "dv"), grads, (dq_ref, dk_ref, dv_ref)):
+            _check(f"autograd {gname} {tag}", got, ref, _grad_bound(ref))
+    del q, k, v, do, o_ref, lse_ref, dq_ref, dk_ref, dv_ref, qg, kg, vg, out, grads
+    torch.cuda.empty_cache()
+    return {"flash_fwd": max(e_o, e_lse), "flash_bwd_dq": e_dq, "flash_bwd_dkv": max(e_dk, e_dv)}
+
+
 def phase_kernels() -> dict:
     """Every kernel against its plain version; returns the worst abs error
     per kernel at the model shape."""
-    from mpi_operator_tpu_torch.kernels import flash_attention as fa
-
     errs = {}
     for i, (label, shape) in enumerate(SHAPES):
         for causal in (True, False):
-            q, k, v, do = _inputs(shape, seed=2 * i + causal)
-            scale = shape[4] ** -0.5
-            tag = f"{label} {'causal' if causal else 'full'} {shape}"
-            with torch.no_grad():
-                o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, scale)
-                o, lse = fa.flash_fwd_cuda(q, k, v, causal, scale)
-                torch.cuda.synchronize()
-                e_o = _check(f"K1 o {tag}", o, o_ref, TOL_O)
-                e_lse = _max_err(lse, lse_ref)
-                log(f"[kernels] K1 lse {tag}: max abs err {e_lse:.3e} (bound {TOL_LSE:.1e})")
-                if not e_lse <= TOL_LSE:
-                    fail(f"K1 lse {tag} disagrees with its plain version: {e_lse}")
-                delta = (do.float() * o_ref.float()).sum(-1)
-                args = (q, k, v, do, lse_ref, delta, causal, scale)
-                dq_ref = fa.flash_bwd_dq_plain(*args)
-                dq = fa.flash_bwd_dq_cuda(*args)
-                torch.cuda.synchronize()
-                e_dq = _check(f"K2 dq {tag}", dq, dq_ref, _grad_bound(dq_ref))
-                dk_ref, dv_ref = fa.flash_bwd_dkv_plain(*args)
-                dk, dv = fa.flash_bwd_dkv_cuda(*args)
-                torch.cuda.synchronize()
-                e_dk = _check(f"K3 dk {tag}", dk, dk_ref, _grad_bound(dk_ref))
-                e_dv = _check(f"K3 dv {tag}", dv, dv_ref, _grad_bound(dv_ref))
-                if label == "model" and causal:
-                    for name, ref in (("o", o_ref), ("dq", dq_ref), ("dk", dk_ref),
-                                      ("dv", dv_ref)):
-                        _check_has_power(f"{name} {tag}", ref)
-            # the autograd path: flash_attention forward + backward
-            qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-            out = fa.flash_attention(qg, kg, vg, causal=causal, scale=scale, layout="bhtd")
-            grads = torch.autograd.grad(out, (qg, kg, vg), do)
-            torch.cuda.synchronize()
-            with torch.no_grad():
-                _check(f"autograd o {tag}", out, o_ref, TOL_O)
-                for gname, got, ref in zip(("dq", "dk", "dv"), grads, (dq_ref, dk_ref, dv_ref)):
-                    _check(f"autograd {gname} {tag}", got, ref, _grad_bound(ref))
-            if label == "model" and causal:
-                errs = {
-                    "flash_fwd": max(e_o, e_lse),
-                    "flash_bwd_dq": e_dq,
-                    "flash_bwd_dkv": max(e_dk, e_dv),
-                }
-            del q, k, v, do, o_ref, lse_ref, dq_ref, dk_ref, dv_ref, qg, kg, vg, out, grads
-            torch.cuda.empty_cache()
+            model = label == "model" and causal
+            e = _check_shape(label, shape, causal, seed=2 * i + causal, power=model)
+            if model:
+                errs = e
     return errs
 
 
@@ -291,14 +325,14 @@ def _bound(shape, n_matmuls: int, in_bytes: int, out_bytes: int):
     return bytes_ms, "bytes", flops
 
 
-def phase_timing(smi: str) -> dict:
+def phase_timing(smi: str, shape=MODEL_SHAPE) -> dict:
     """Times (ms) of each kernel, its plain version and the SDPA yardstick at
-    the model shape, causal."""
+    ``shape`` (the model shape by default), causal."""
     from mpi_operator_tpu_torch.kernels import flash_attention as fa
 
-    b, t, h, h_kv, d = MODEL_SHAPE
+    b, t, h, h_kv, d = shape
     scale = d ** -0.5
-    q, k, v, do = _inputs(MODEL_SHAPE, seed=11)
+    q, k, v, do = _inputs(shape, seed=11)
     with torch.no_grad():
         o, lse = fa.flash_fwd_cuda(q, k, v, True, scale)
         delta = (do.float() * o.float()).sum(-1)
@@ -315,17 +349,17 @@ def phase_timing(smi: str) -> dict:
             "flash_fwd": (
                 lambda: fa.flash_fwd_cuda(q, k, v, True, scale),
                 lambda: fa.flash_fwd_plain(q, k, v, True, scale),
-                _bound(MODEL_SHAPE, 2, n_q + 2 * n_kv, n_q + n_row), sdpa_fwd,
+                _bound(shape, 2, n_q + 2 * n_kv, n_q + n_row), sdpa_fwd,
             ),
             "flash_bwd_dq": (
                 lambda: fa.flash_bwd_dq_cuda(*args),
                 lambda: fa.flash_bwd_dq_plain(*args),
-                _bound(MODEL_SHAPE, 3, 2 * n_q + 2 * n_kv + 2 * n_row, n_q), None,
+                _bound(shape, 3, 2 * n_q + 2 * n_kv + 2 * n_row, n_q), None,
             ),
             "flash_bwd_dkv": (
                 lambda: fa.flash_bwd_dkv_cuda(*args),
                 lambda: fa.flash_bwd_dkv_plain(*args),
-                _bound(MODEL_SHAPE, 4, 2 * n_q + 2 * n_kv + 2 * n_row, 2 * n_kv), None,
+                _bound(shape, 4, 2 * n_q + 2 * n_kv + 2 * n_row, 2 * n_kv), None,
             ),
         }
         for name, (kernel, plain, (bound_ms, bound_by, flops), lib_ms) in specs.items():
@@ -334,7 +368,7 @@ def phase_timing(smi: str) -> dict:
             tflops = flops / (ms * 1e-3) / 1e12
             out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=lib_ms, tflops=tflops, bound_share=bound_ms / ms)
-            log(f"[timing] {name} {MODEL_SHAPE} causal: kernel {ms:.4f} ms "
+            log(f"[timing] {name} {shape} causal: kernel {ms:.4f} ms "
                 f"({tflops:.1f} TFLOP/s, {100 * bound_ms / ms:.1f} % of bound), plain "
                 f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), sdpa "
                 f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} [{smi}]")
@@ -344,7 +378,9 @@ def phase_timing(smi: str) -> dict:
     sdpa_bwd = _time_ms(lambda: torch.autograd.grad(o_sdpa, (qg, kg, vg), do, retain_graph=True))
     del o_sdpa
     dq_ms, dkv_ms = out["flash_bwd_dq"]["ms"], out["flash_bwd_dkv"]["ms"]
-    log(f"[timing] bwd {MODEL_SHAPE} causal: K2 + K3 {dq_ms + dkv_ms:.4f} ms (K2 {dq_ms:.4f}, "
+    for name in out:
+        out[name]["sdpa_bwd_ms"] = sdpa_bwd
+    log(f"[timing] bwd {shape} causal: K2 + K3 {dq_ms + dkv_ms:.4f} ms (K2 {dq_ms:.4f}, "
         f"K3 {dkv_ms:.4f}), sdpa backward alone {sdpa_bwd:.4f} ms (dq, dk, dv of the MHA "
         f"form) [{smi}]")
 
@@ -358,7 +394,7 @@ def phase_timing(smi: str) -> dict:
         o_ = fa.flash_attention(qf, kf, vf, causal=True, scale=scale, layout="bhtd")
         torch.autograd.grad(o_, (qf, kf, vf), do)
 
-    log(f"[timing] fwd+bwd {MODEL_SHAPE} causal: port {_time_ms(flash_fwd_bwd):.3f} ms, "
+    log(f"[timing] fwd+bwd {shape} causal: port {_time_ms(flash_fwd_bwd):.3f} ms, "
         f"sdpa {_time_ms(sdpa_fwd_bwd):.3f} ms, sdpa fwd {sdpa_fwd:.3f} ms [{smi}]")
     return out
 
@@ -615,6 +651,154 @@ def phase_ring(smi: str) -> dict:
     return {"launches": launches, "times": times, "fold_ms": fold_ms, "whole_ms": whole_ms}
 
 
+def phase_small_d(smi: str) -> dict:
+    """Phase 8: K1–K3 at D 16 and 32 against the plain versions at the
+    worker's tiny shape and at B 4, T 2048, H 16, Hkv 4, where each kernel,
+    its plain version and SDPA are timed. Returns, per kernel and D, the
+    times and the worst max abs error."""
+    out = {name: {} for name in REPLACES}
+    for d in SMALL_D:
+        errs = {name: 0.0 for name in REPLACES}
+        for i, (label, shape) in enumerate((("tiny", (2, 128, 4, 2, d)),
+                                            ("wide", (4, 2048, 16, 4, d)))):
+            for causal in (True, False):
+                e = _check_shape(f"D{d} {label}", shape, causal, seed=40 + 2 * i + causal)
+                errs = {name: max(errs[name], e[name]) for name in REPLACES}
+        times = phase_timing(smi, (4, 2048, 16, 4, d))
+        for name in REPLACES:
+            out[name][str(d)] = {**times[name], "max_abs_err": errs[name]}
+    return out
+
+
+def phase_worker_manifest(smi: str) -> dict:
+    """Phase 9: the worker at examples/llama.yaml's config, tiny() as it is."""
+    rc, rec, wall = _worker(MANIFEST_ENV, timeout=300)
+    log(f"[worker] {MANIFEST_ENV}: rc {rc}, {wall:.1f}s, {rec} [{smi}]")
+    launches = rec.get("kernel_launches", {})
+    if rc != 0 or rec["backend"] != "cuda" or rec["outcome"] != "done":
+        fail(f"the worker at the manifest's config failed: rc {rc}, {rec}")
+    if len(rec["losses"]) != 3 or not all(math.isfinite(x) for x in rec["losses"]):
+        fail(f"the worker's losses are not 3 finite values: {rec['losses']}")
+    if set(launches) != set(REPLACES) or not all(launches[k] > 0 for k in REPLACES):
+        fail(f"the worker launched not every kernel: {launches}")
+    return rec
+
+
+def phase_profiling(smi: str) -> dict:
+    """Phase 10: a projected profile request for 2 steps against the worker
+    with a checkpoint dir; the blob acks done and the trace shows K1."""
+    from mpi_operator_tpu_torch.ops import profiling
+    from mpi_operator_tpu_torch.runtime.stepstats import read_stats
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        cfg = os.path.join(tmp, "config")
+        os.makedirs(cfg)
+        with open(os.path.join(cfg, profiling.PROFILE_REQUEST_FILE), "w") as f:
+            json.dump({"id": "smoke", "steps": 2}, f)
+        stats_path = os.path.join(tmp, "stats.json")
+        env = {**MANIFEST_ENV, "LLAMA_STEPS": "6", "LLAMA_CKPT": os.path.join(tmp, "ckpt"),
+               "LLAMA_SAVE_EVERY": "6", "LLAMA_CHECK_EVERY": "2", "TPUJOB_CONFIG_DIR": cfg,
+               "TPUJOB_STEPSTATS_FILE": stats_path, "TPUJOB_STEPSTATS_INTERVAL": "0"}
+        rc, rec, wall = _worker(env, timeout=300)
+        ack = (read_stats(stats_path) or {}).get("profile", {})
+        trace = os.path.join(tmp, "ckpt", "profiles", "smoke", "host0", profiling.TRACE_FILE)
+        size, events = 0, []
+        if os.path.exists(trace):
+            size = os.path.getsize(trace)
+            with open(trace) as f:
+                events = json.load(f).get("traceEvents", [])
+        k1 = sum(1 for e in events if CUDA_KERNEL["flash_fwd"] in e.get("name", ""))
+        log(f"[profile] rc {rc}, {wall:.1f}s, ack {ack}, trace {size} bytes, {len(events)} "
+            f"events, {k1} of {CUDA_KERNEL['flash_fwd']} [{smi}]")
+        if rc != 0 or ack.get("state") != "done" or ack.get("id") != "smoke":
+            fail(f"the profile request was not served: rc {rc}, ack {ack}")
+        if not k1:
+            fail(f"the trace ({size} bytes) holds no {CUDA_KERNEL['flash_fwd']} event")
+        return {"ack": ack, "trace_bytes": size, "events": len(events), "k1_events": k1}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_compile_cache(smi: str) -> dict:
+    """Phase 11: two processes on one fresh kernel-cache dir."""
+    from mpi_operator_tpu_torch.runtime import compile_cache
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    try:
+        out = compile_cache.smoke(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[cache] {out} [{smi}]")
+    if not out["ok"]:
+        fail(f"the second process did not load the first one's kernels without nvcc: {out}")
+    return out
+
+
+def phase_moe_pipeline(smi: str) -> dict:
+    """Phase 12: the MoE layer at the bench widths, timed, and on 512 tokens
+    against the CPU; run_pipeline's fall-back on the card against the CPU."""
+    from mpi_operator_tpu_torch.parallel import moe
+    from mpi_operator_tpu_torch.parallel.pipeline import run_pipeline
+
+    cfg = moe.MoEConfig(d_model=2048, d_ff=7168, n_experts=8)
+    params = moe.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    leaves = [params[g]["w"].requires_grad_() for g in ("router", "w_in", "w_out")]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(4, 2048, 2048, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad():
+            return moe.apply(cfg, params, x)
+
+    def fwd_bwd():
+        y, aux = moe.apply(cfg, params, x)
+        return torch.autograd.grad((y.float() ** 2).mean() + 0.01 * aux, leaves)
+
+    fwd_ms, fwd_bwd_ms = _time_ms(fwd, reps=5), _time_ms(fwd_bwd, reps=5)
+    y, aux = fwd()
+    if not (bool(torch.isfinite(y).all()) and math.isfinite(float(aux))):
+        fail("the MoE layer's output is not finite at the bench widths")
+    log(f"[moe] d_model 2048, d_ff 7168, 8 experts, 4 x 2048 tokens bf16: forward "
+        f"{fwd_ms:.3f} ms, forward + backward {fwd_bwd_ms:.3f} ms, aux {float(aux):.4f} [{smi}]")
+
+    xs = x[:1, :512]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p = {g: {"w": params[g]["w"].detach().to(dev).requires_grad_()} for g in params}
+        y, aux = moe.apply(cfg, p, xs.to(dev))
+        grads = torch.autograd.grad((y.float() ** 2).mean() + 0.01 * aux,
+                                    [p[g]["w"] for g in ("router", "w_in", "w_out")])
+        res[dev] = (y.detach().float().cpu(), float(aux.detach()),
+                    [g.float().cpu() for g in grads])
+    (y_c, aux_c, g_c), (y_h, aux_h, g_h) = res["cuda"], res["cpu"]
+    errs = {"y": _max_err(y_c, y_h) / float(y_h.abs().max())}
+    errs.update({f"grad_{g}": _max_err(a, b) / float(b.abs().max())
+                 for g, a, b in zip(("router", "w_in", "w_out"), g_c, g_h)})
+    log(f"[moe] 512 tokens, card against the CPU: {errs} (bound 3e-2 of max), aux "
+        f"{aux_c:.6f} / {aux_h:.6f}")
+    if not (all(e <= 3e-2 for e in errs.values()) and abs(aux_c - aux_h) <= 1e-4 * aux_h):
+        fail(f"the MoE layer on the card disagrees with the CPU: {errs}, aux {aux_c} {aux_h}")
+
+    d, n_layers = 512, 8
+    stacked = {"w": torch.randn(n_layers, d, d, generator=gen, device="cuda") * d ** -0.5,
+               "b": torch.zeros(n_layers, d, device="cuda")}
+    h = torch.randn(64, d, generator=gen, device="cuda")
+
+    def stage(p, a):
+        return torch.tanh(a @ p["w"] + p["b"])
+
+    got = run_pipeline(stage, stacked, h, None, n_microbatches=4).cpu()
+    want = run_pipeline(stage, {k: v.cpu() for k, v in stacked.items()}, h.cpu(), None,
+                        n_microbatches=4)
+    e_pipe = _max_err(got, want) / float(want.abs().max())
+    log(f"[pipeline] fall-back (no pipe axis), {n_layers} layers of {d}: card against the "
+        f"CPU {e_pipe:.3e} (bound 1e-5)")
+    if not e_pipe <= 1e-5:
+        fail(f"run_pipeline's fall-back on the card disagrees with the CPU: {e_pipe}")
+    return {"fwd_ms": fwd_ms, "fwd_bwd_ms": fwd_bwd_ms, "errs": errs, "pipe_err": e_pipe}
+
+
 def main() -> None:
     smi = phase_device()
     resources = phase_build()
@@ -624,6 +808,11 @@ def main() -> None:
     launches = phase_main(smi)
     phase_gang(smi)
     ring = phase_ring(smi)
+    small_d = phase_small_d(smi)
+    phase_worker_manifest(smi)
+    phase_profiling(smi)
+    phase_compile_cache(smi)
+    phase_moe_pipeline(smi)
     kernels = [
         {
             "name": name,
@@ -636,6 +825,7 @@ def main() -> None:
             "max_abs_err": errs[name],
             **times[name],
             **resources[name],
+            "small_d": small_d[name],
         }
         for name in REPLACES
     ]

@@ -1,20 +1,21 @@
 """Multi-device dry run of the full training step on a data×fsdp×tensor×
-sequence mesh.
+sequence mesh, then the expert- and pipeline-parallel layers.
 
 Port of ``dryrun_multichip`` and ``_dryrun_inprocess`` in the repository's
 ``__graft_entry__.py``: :func:`_plan_for` factors n devices into the same
 mesh (8 → ``fsdp=2,tensor=2,sequence=2``), one step of ``tiny()`` runs on
-it at the JAX dry run's shapes (batch max(8, n), seq 16 × sequence), and
-then the DCN step: two slices on the ``data`` axis's slice factor
-(``_dryrun_multislice``). The expert- and pipeline-parallel parts of the
-JAX dry run are not ported yet (ROADMAP.md); they are neither run nor
-reported.
+it at the JAX dry run's shapes (batch max(8, n), seq 16 × sequence), then
+the DCN step: two slices on the ``data`` axis's slice factor
+(``_dryrun_multislice``); then EP (``_dryrun_expert_parallel``: the MoE
+layer with its n experts over ``expert=n``) and PP
+(``_dryrun_pipeline_parallel``: the GPipe schedule over ``pipe`` = 4, or
+2, beside ``data``). Each of the last two is also held to its local form
+(all experts here; the layers in order), within 1e-5 relative.
 
 Every rank is a fresh process, spawned as the worker spawns its ranks
 (``runtime/bootstrap.run_local_ranks``; gloo or NCCL rendezvous at a free
 localhost port): one per card on CUDA, the default; ``device="cpu"`` runs n gloo
-ranks on the CPU. On CUDA ``tiny()`` takes head_dim 64, the smallest the
-kernels are built for.
+ranks on the CPU. ``tiny()`` runs as it is (head_dim 16) on either.
 
     python -m mpi_operator_tpu_torch.dryrun [N] [--device cpu]
 """
@@ -22,7 +23,6 @@ kernels are built for.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import math
 import os
@@ -35,11 +35,15 @@ import torch
 
 from mpi_operator_tpu_torch.runtime.topology import (
     AXIS_DATA,
+    AXIS_EXPERT,
     AXIS_FSDP,
+    AXIS_PIPE,
     AXIS_SEQ,
     AXIS_TENSOR,
     MeshPlan,
 )
+
+TOL_LOCAL = 1e-5  # the EP and PP layers against their local forms
 
 def _plan_for(n_devices: int) -> MeshPlan:
     """Factor n into a full dp×fsdp×tensor×sequence mesh (largest factors on
@@ -55,13 +59,6 @@ def _plan_for(n_devices: int) -> MeshPlan:
     if rem > 1:  # odd remainder rides the data axis
         sizes[AXIS_DATA] *= rem
     return MeshPlan(axes={a: s for a, s in sizes.items() if s > 1} or {AXIS_DATA: 1})
-
-
-def _config(device: torch.device):
-    from mpi_operator_tpu_torch.models import llama
-
-    cfg = llama.tiny()
-    return dataclasses.replace(cfg, head_dim=64) if device.type == "cuda" else cfg
 
 
 def dryrun_multichip(n_devices: int = 8, device: Optional[str] = None, timeout: float = 600):
@@ -108,7 +105,7 @@ def _step(mesh, device, plan: MeshPlan, batch_sz: int, seq_len: int) -> float:
     from mpi_operator_tpu_torch.ops import Trainer, TrainerConfig
     from mpi_operator_tpu_torch.ops.data import make_global_batch
 
-    cfg = _config(device)
+    cfg = llama.tiny()
     model = llama.init(cfg, torch.Generator(device=device).manual_seed(0), device)
     trainer = Trainer(llama.loss_fn, TrainerConfig(learning_rate=1e-3), mesh=mesh)
     state = trainer.init_state(model)
@@ -147,9 +144,66 @@ def _dryrun_inprocess(n_devices: int, device: str, local_rank: int) -> dict:
             if log:
                 print(f"[dryrun] DCN OK: 2 slices x {n_devices // 2} devices, "
                       f"loss={record['dcn_loss']:.4f}", file=sys.stderr)
+        record.update(_dryrun_expert_parallel(n_devices, dev, log))
+        record.update(_dryrun_pipeline_parallel(n_devices, dev, log))
         return record
     finally:
         bootstrap.shutdown()
+
+
+def _rel_diff(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def _dryrun_expert_parallel(n_devices: int, dev: torch.device, log: bool) -> dict:
+    """EP: the MoE layer with its experts over ``expert=n``, against all
+    experts run on this rank."""
+    from mpi_operator_tpu_torch.parallel import moe
+    from mpi_operator_tpu_torch.runtime.topology import build_mesh
+
+    mesh = build_mesh(MeshPlan(axes={AXIS_EXPERT: n_devices}), dev.type)
+    cfg = moe.MoEConfig(d_model=32, d_ff=64, n_experts=n_devices)
+    params = moe.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    x = torch.randn(2, 16, 32, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    y, aux = moe.apply(cfg, params, x, mesh=mesh)
+    y_local, aux_local = moe.apply(cfg, params, x)
+    diff = _rel_diff(y, y_local)
+    if not (y.shape == x.shape and math.isfinite(float(aux)) and diff <= TOL_LOCAL
+            and abs(float(aux) - float(aux_local)) <= TOL_LOCAL * float(aux_local)):
+        raise AssertionError(f"EP: y {tuple(y.shape)} off its local form by {diff}, "
+                             f"aux {float(aux)} vs {float(aux_local)}")
+    if log:
+        print(f"[dryrun] EP OK: {n_devices}-way experts, aux={float(aux):.3f}", file=sys.stderr)
+    return {"ep_experts": n_devices, "ep_aux": float(aux), "ep_diff": diff}
+
+
+def _dryrun_pipeline_parallel(n_devices: int, dev: torch.device, log: bool) -> dict:
+    """PP: the GPipe schedule over ``pipe`` (4 stages where n divides by 4,
+    else 2, else none) with ``data`` beside it, against the layers in
+    order."""
+    from mpi_operator_tpu_torch.parallel.pipeline import run_pipeline
+    from mpi_operator_tpu_torch.runtime.topology import build_mesh
+
+    pipe = 4 if n_devices % 4 == 0 else (2 if n_devices % 2 == 0 else 1)
+    if pipe == 1:
+        return {}
+    mesh = build_mesh(MeshPlan(axes={AXIS_DATA: n_devices // pipe, AXIS_PIPE: pipe}), dev.type)
+    d, n_layers = 16, pipe * 2
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = {"w": torch.randn(n_layers, d, d, generator=gen, device=dev) * 0.5,
+              "b": torch.zeros(n_layers, d, device=dev)}
+    x = torch.randn(8, d, generator=gen, device=dev)
+
+    def stage(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    y = run_pipeline(stage, params, x, mesh, n_microbatches=4)
+    diff = _rel_diff(y, run_pipeline(stage, params, x, None, n_microbatches=4))
+    if not (y.shape == x.shape and bool(torch.isfinite(y).all()) and diff <= TOL_LOCAL):
+        raise AssertionError(f"PP: y {tuple(y.shape)} off the layers in order by {diff}")
+    if log:
+        print(f"[dryrun] PP OK: {pipe}-stage pipeline", file=sys.stderr)
+    return {"pp_stages": pipe, "pp_diff": diff}
 
 
 if __name__ == "__main__":

@@ -11,17 +11,30 @@ source. The TMA descriptors the kernels take are encoded by libcuda's
 ``cuTensorMapEncodeTiled``, which the sources reach through the CUDA runtime
 (``cudaGetDriverEntryPoint``), so nothing links against ``libcuda``.
 
+``runtime/compile_cache.configure`` moves the libraries to a persistent
+directory (:func:`set_build_dir`): the worker contract's
+``TPUJOB_COMPILE_CACHE_DIR``. Several ranks or processes may build into one
+directory at once: the process that compiles a library holds its lock
+file meanwhile, so one runs ``nvcc`` and the others then load what it
+built; each compiles into a temp path of its own and moves the library into place
+atomically. Per process, each library counts once in :func:`build_stats`:
+a hit when it was already built, a miss when this process built it.
+
 Nothing here runs on import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
+import secrets
 import shutil
+import socket
 import subprocess
 import time
 from typing import Dict, Iterable, List
@@ -40,6 +53,35 @@ NVCC_FLAGS = [
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_build_dir = BUILD_DIR
+_stats = {"hits": 0, "misses": 0}
+_counted: set = set()  # libraries this process has counted in _stats
+LOCK_TIMEOUT_S = 1800  # a lock is held at most one nvcc (900 s) long
+
+
+def build_dir() -> str:
+    """Where libraries are built and loaded from (``BUILD_DIR`` unless
+    :func:`set_build_dir` moved it)."""
+    return _build_dir
+
+
+def set_build_dir(path: str) -> None:
+    """Build and load libraries under ``path`` from now on. Libraries this
+    process already loaded stay loaded."""
+    global _build_dir
+    _build_dir = path
+
+
+def build_stats() -> Dict[str, int]:
+    """This process's library hits (loaded as built) and misses (built
+    here), each library counted once."""
+    return dict(_stats)
+
+
+def _count(name: str, kind: str) -> None:
+    if name not in _counted:
+        _counted.add(name)
+        _stats[kind] += 1
 
 
 def nvcc_path() -> str:
@@ -81,22 +123,56 @@ def _lib_path(name: str) -> str:
         with open(os.path.join(CSRC, rel), "rb") as f:
             h.update(rel.encode() + b"\0" + f.read() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}", f"lib{name}.so")
+    return os.path.join(_build_dir, f"{name}-{h.hexdigest()[:16]}", f"lib{name}.so")
+
+
+@contextlib.contextmanager
+def _locked(paths: Iterable[str]):
+    """Hold an exclusive lock on each ``<path>.lock`` (in sorted order, so
+    two processes building several libraries cannot deadlock); raise after
+    ``LOCK_TIMEOUT_S`` seconds of waiting for one."""
+    with contextlib.ExitStack() as stack:
+        for path in sorted(paths):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            f = stack.enter_context(open(path + ".lock", "w"))
+            deadline = time.monotonic() + LOCK_TIMEOUT_S
+            while True:
+                try:
+                    fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                    break
+                except BlockingIOError:
+                    if time.monotonic() > deadline:
+                        raise RuntimeError(f"another process held {path}.lock for "
+                                           f"{LOCK_TIMEOUT_S} s") from None
+                    time.sleep(0.2)
+            stack.callback(fcntl.flock, f, fcntl.LOCK_UN)
+        yield
 
 
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, float]:
     """Compile every named library that is not built yet, all ``nvcc``
     processes at once. Returns seconds spent per library built (empty when
     all were cached). Raises with the compiler's output on failure."""
+    names = list(names)
+    if all(os.path.exists(_lib_path(name)) for name in names):
+        for name in names:
+            _count(name, "hits")
+        return {}
+    with _locked(_lib_path(name) for name in names):
+        return _build_locked(names)
+
+
+def _build_locked(names: List[str]) -> Dict[str, float]:
     pending = {}
     for name in names:
         out = _lib_path(name)
-        if os.path.exists(out):
+        if os.path.exists(out):  # built, maybe by the process that held the lock
+            _count(name, "hits")
             continue
-        os.makedirs(os.path.dirname(out), exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
+        # a temp path of this process's own, even across hosts sharing the dir
+        tmp = f"{out}.{socket.gethostname()}.{os.getpid()}.{secrets.token_hex(4)}.tmp"
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[name])]
-        log = open(out + ".log", "w")
+        log = open(tmp + ".log", "w")
         pending[name] = (
             subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
             log, tmp, out, time.perf_counter(),
@@ -113,11 +189,13 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, float]:
         finally:
             log.close()
         seconds[name] = time.perf_counter() - t0
+        os.replace(tmp + ".log", out + ".log")
         if rc != 0:
             with open(out + ".log") as f:
                 failed.append(f"nvcc failed for {name} (rc {rc}):\n{f.read()}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        _count(name, "misses")
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds

@@ -44,7 +44,7 @@
 // Plain C interface (loaded with ctypes): every launcher returns
 // cudaGetLastError() right after its launch, and the Python wrapper raises on
 // anything but 0. Layouts are contiguous: q/o/dO/dq [B,H,T,D], k/v/dk/dv
-// [B,Hkv,T,D], lse/delta [B,H,T] f32.
+// [B,Hkv,T,D], lse/delta [B,H,T] f32, D in {16, 32, 64, 128}.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -78,6 +78,13 @@ __device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
   return raw + ((1024u - (hopper::smem_u32(raw) & 1023u)) & 1023u);
 }
 
+// The shared-memory tile width of a head dim: D 64 and 128 as they are;
+// D 16 and 32 in the D-64 tiles, whose columns past D the TMA box zero-fills
+// (the tensor map's inner extent is D), so Q.K^T and dO.V^T skip the zero
+// k16 steps (DH / 16 of them), P.V and the other products whose N is the
+// head dim run at N = 64 on zero columns, and only DH columns are stored.
+__host__ __device__ constexpr int tile_d(int dh) { return dh < 64 ? 64 : dh; }
+
 constexpr int WG_THREADS = 128;          // one warpgroup
 constexpr int WG_CTA = 2 * WG_THREADS;   // two consumer warpgroups per CTA
 
@@ -100,11 +107,12 @@ template <int D> struct FwdSmem {
 // operands in shared memory), P = exp2(S - m) rounded to bf16 in place as
 // the A operand of O += P.V (V read MN-major). Each accumulator row lives in
 // the 4 threads of a quad: two shuffles for the max, two for the final sum.
-template <int D>
+template <int DH>
 __global__ void __launch_bounds__(WG_CTA, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
                  float* __restrict__ lse, int H, int Hkv, int T, int causal, float scale_log2) {
+  constexpr int D = tile_d(DH);
   using L = FwdSmem<D>;
   constexpr int NC = D / 64;  // 64-wide column blocks of a row
   extern __shared__ unsigned char smem_raw[];
@@ -170,7 +178,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     float acc_s[FWD_BK / 2];
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DH / 16; ++kk)
       hopper::Wgmma<FWD_BK>::ss(acc_s, hopper::desc_k_major<FWD_BQ>(sQw, kk),
                                 hopper::desc_k_major<FWD_BK>(stage_k(s), kk), kk > 0);
     hopper::wgmma_commit();
@@ -238,9 +246,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 #pragma unroll
   for (int i = 0; i < D / 2; i += 2) {
     const int r = row + 8 * ((i / 2) % 2);
-    if (r < T) {
+    if (8 * (i / 4) < DH && r < T) {
       const int col = 8 * (i / 4) + 2 * (lane % 4);
-      *reinterpret_cast<__nv_bfloat162*>(o + ((size_t)bh * T + r) * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(o + ((size_t)bh * T + r) * DH + col) =
           __floats2bfloat162_rn(acc_o[i] / l[(i / 2) % 2], acc_o[i + 1] / l[(i / 2) % 2]);
     }
   }
@@ -275,13 +283,14 @@ template <int D> struct DqSmem {
 // two rows from global memory once (no TMA box, which must start 16-byte
 // aligned, and no shared slot). Causal: warpgroup 0's rows end one k tile
 // before the CTA's bound, so it leaves the loop a tile early.
-template <int D>
+template <int DH>
 __global__ void __launch_bounds__(WG_CTA, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dq, int H, int Hkv, int T, int causal, float scale,
                     float scale_log2) {
+  constexpr int D = tile_d(DH);
   using L = DqSmem<D>;
   constexpr int NC = D / 64;
   extern __shared__ unsigned char smem_raw[];
@@ -359,12 +368,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
     float acc_s[DQ_BK / 2], acc_dp[DQ_BK / 2];
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DH / 16; ++kk)
       hopper::Wgmma<DQ_BK>::ss(acc_s, hopper::desc_k_major<DQ_BQ>(sQw, kk),
                                hopper::desc_k_major<DQ_BK>(stage_k(s), kk), kk > 0);
     hopper::wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DH / 16; ++kk)
       hopper::Wgmma<DQ_BK>::ss(acc_dp, hopper::desc_k_major<DQ_BQ>(sdOw, kk),
                                hopper::desc_k_major<DQ_BK>(stage_v(s), kk), kk > 0);
     hopper::wgmma_commit();
@@ -410,9 +419,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
 #pragma unroll
   for (int i = 0; i < D / 2; i += 2) {
     const int r = row + 8 * ((i / 2) % 2);
-    if (r < T) {
+    if (8 * (i / 4) < DH && r < T) {
       const int col = 8 * (i / 4) + 2 * (lane % 4);
-      *reinterpret_cast<__nv_bfloat162*>(dq + ((size_t)bh * T + r) * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(dq + ((size_t)bh * T + r) * DH + col) =
           __floats2bfloat162_rn(acc_dq[i] * scale, acc_dq[i + 1] * scale);
     }
   }
@@ -437,13 +446,14 @@ template <int D> struct DkvSmem {
 // dS^T are register A operands of dV += P^T.dO and dK += dS^T.Q, with dO and
 // Q read MN-major. dK and dV stay f32 registers over the whole group: no
 // atomics, no [B,H,T,D] transient.
-template <int D>
+template <int DH>
 __global__ void __launch_bounds__(WG_CTA, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Hkv, int T,
                      int causal, float scale, float scale_log2) {
+  constexpr int D = tile_d(DH);
   using L = DkvSmem<D>;
   constexpr int NC = D / 64;
   extern __shared__ unsigned char smem_raw[];
@@ -532,12 +542,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
     float acc_s[DKV_BQ / 2], acc_dp[DKV_BQ / 2];
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DH / 16; ++kk)
       hopper::Wgmma<DKV_BQ>::ss(acc_s, hopper::desc_k_major<DKV_BK>(sKw, kk),
                                 hopper::desc_k_major<DKV_BQ>(stage_q(s), kk), kk > 0);
     hopper::wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DH / 16; ++kk)
       hopper::Wgmma<DKV_BQ>::ss(acc_dp, hopper::desc_k_major<DKV_BK>(sVw, kk),
                                 hopper::desc_k_major<DKV_BQ>(stage_do(s), kk), kk > 0);
     hopper::wgmma_commit();
@@ -583,8 +593,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
 #pragma unroll
   for (int i = 0; i < D / 2; i += 2) {
     const int r = row + 8 * ((i / 2) % 2);
-    if (r < T) {
-      const size_t at = ((size_t)bhk * T + r) * D + 8 * (i / 4) + 2 * (lane % 4);
+    if (8 * (i / 4) < DH && r < T) {
+      const size_t at = ((size_t)bhk * T + r) * DH + 8 * (i / 4) + 2 * (lane % 4);
       *reinterpret_cast<__nv_bfloat162*>(dk + at) =
           __floats2bfloat162_rn(acc_dk[i] * scale, acc_dk[i + 1] * scale);
       *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(acc_dv[i], acc_dv[i + 1]);
@@ -662,55 +672,55 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int D>
+template <int DH>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
                int Hkv, int T, int causal, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t e;
-  if ((e = hopper::tmap_rows_bf16(&tq, q, B * H, T, D, FWD_BQ)) != cudaSuccess) return (int)e;
-  if ((e = hopper::tmap_rows_bf16(&tk, k, B * Hkv, T, D, FWD_BK)) != cudaSuccess) return (int)e;
-  if ((e = hopper::tmap_rows_bf16(&tv, v, B * Hkv, T, D, FWD_BK)) != cudaSuccess) return (int)e;
-  const size_t smem = FwdSmem<D>::kBytes;
-  if ((e = prepare(flash_fwd_kernel<D>, smem)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tq, q, B * H, T, DH, FWD_BQ)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tk, k, B * Hkv, T, DH, FWD_BK)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tv, v, B * Hkv, T, DH, FWD_BK)) != cudaSuccess) return (int)e;
+  const size_t smem = FwdSmem<tile_d(DH)>::kBytes;
+  if ((e = prepare(flash_fwd_kernel<DH>, smem)) != cudaSuccess) return (int)e;
   dim3 grid((T + FWD_BQ - 1) / FWD_BQ, B * H);
-  flash_fwd_kernel<D><<<grid, WG_CTA, smem, stream>>>(tq, tk, tv, (bf16*)o, (float*)lse, H, Hkv,
+  flash_fwd_kernel<DH><<<grid, WG_CTA, smem, stream>>>(tq, tk, tv, (bf16*)o, (float*)lse, H, Hkv,
                                                       T, causal, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DH>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, int B, int H, int Hkv, int T, int causal, float scale,
               cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t e;
-  if ((e = hopper::tmap_rows_bf16(&tq, q, B * H, T, D, DQ_BQ)) != cudaSuccess) return (int)e;
-  if ((e = hopper::tmap_rows_bf16(&tdo, dout, B * H, T, D, DQ_BQ)) != cudaSuccess) return (int)e;
-  if ((e = hopper::tmap_rows_bf16(&tk, k, B * Hkv, T, D, DQ_BK)) != cudaSuccess) return (int)e;
-  if ((e = hopper::tmap_rows_bf16(&tv, v, B * Hkv, T, D, DQ_BK)) != cudaSuccess) return (int)e;
-  const size_t smem = DqSmem<D>::kBytes;
-  if ((e = prepare(flash_bwd_dq_kernel<D>, smem)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tq, q, B * H, T, DH, DQ_BQ)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tdo, dout, B * H, T, DH, DQ_BQ)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tk, k, B * Hkv, T, DH, DQ_BK)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tv, v, B * Hkv, T, DH, DQ_BK)) != cudaSuccess) return (int)e;
+  const size_t smem = DqSmem<tile_d(DH)>::kBytes;
+  if ((e = prepare(flash_bwd_dq_kernel<DH>, smem)) != cudaSuccess) return (int)e;
   dim3 grid((T + DQ_BQ - 1) / DQ_BQ, B * H);
-  flash_bwd_dq_kernel<D><<<grid, WG_CTA, smem, stream>>>(
+  flash_bwd_dq_kernel<DH><<<grid, WG_CTA, smem, stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dq, H, Hkv, T, causal, scale,
       scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DH>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int B, int H, int Hkv, int T, int causal,
                float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t e;
-  if ((e = hopper::tmap_rows_bf16(&tq, q, B * H, T, D, DKV_BQ)) != cudaSuccess) return (int)e;
-  if ((e = hopper::tmap_rows_bf16(&tdo, dout, B * H, T, D, DKV_BQ)) != cudaSuccess) return (int)e;
-  if ((e = hopper::tmap_rows_bf16(&tk, k, B * Hkv, T, D, DKV_BK)) != cudaSuccess) return (int)e;
-  if ((e = hopper::tmap_rows_bf16(&tv, v, B * Hkv, T, D, DKV_BK)) != cudaSuccess) return (int)e;
-  const size_t smem = DkvSmem<D>::kBytes;
-  if ((e = prepare(flash_bwd_dkv_kernel<D>, smem)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tq, q, B * H, T, DH, DKV_BQ)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tdo, dout, B * H, T, DH, DKV_BQ)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tk, k, B * Hkv, T, DH, DKV_BK)) != cudaSuccess) return (int)e;
+  if ((e = hopper::tmap_rows_bf16(&tv, v, B * Hkv, T, DH, DKV_BK)) != cudaSuccess) return (int)e;
+  const size_t smem = DkvSmem<tile_d(DH)>::kBytes;
+  if ((e = prepare(flash_bwd_dkv_kernel<DH>, smem)) != cudaSuccess) return (int)e;
   dim3 grid((T + DKV_BK - 1) / DKV_BK, B * Hkv);
-  flash_bwd_dkv_kernel<D><<<grid, WG_CTA, smem, stream>>>(
+  flash_bwd_dkv_kernel<DH><<<grid, WG_CTA, smem, stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, H, Hkv, T,
       causal, scale, scale * LOG2E);
   return (int)cudaGetLastError();
@@ -737,6 +747,8 @@ extern "C" {
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
                    int Hkv, int T, int D, int causal, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (D == 16) return launch_fwd<16>(q, k, v, o, lse, B, H, Hkv, T, causal, scale, s);
+  if (D == 32) return launch_fwd<32>(q, k, v, o, lse, B, H, Hkv, T, causal, scale, s);
   if (D == 64) return launch_fwd<64>(q, k, v, o, lse, B, H, Hkv, T, causal, scale, s);
   if (D == 128) return launch_fwd<128>(q, k, v, o, lse, B, H, Hkv, T, causal, scale, s);
   return (int)cudaErrorInvalidValue;
@@ -746,6 +758,8 @@ int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* d
                       const void* lse, const void* delta, void* dq, int B, int H, int Hkv, int T,
                       int D, int causal, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (D == 16) return launch_dq<16>(q, k, v, dout, lse, delta, dq, B, H, Hkv, T, causal, scale, s);
+  if (D == 32) return launch_dq<32>(q, k, v, dout, lse, delta, dq, B, H, Hkv, T, causal, scale, s);
   if (D == 64) return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, H, Hkv, T, causal, scale, s);
   if (D == 128)
     return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, H, Hkv, T, causal, scale, s);
@@ -756,6 +770,10 @@ int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* 
                        const void* lse, const void* delta, void* dk, void* dv, int B, int H,
                        int Hkv, int T, int D, int causal, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (D == 16)
+    return launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, T, causal, scale, s);
+  if (D == 32)
+    return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, T, causal, scale, s);
   if (D == 64)
     return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, T, causal, scale, s);
   if (D == 128)

@@ -252,8 +252,10 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// [n, t, D] bf16, contiguous, read in boxes of [rows, 64] with the 128-byte
-// swizzle; rows past t (and heads past n) are zero-filled, never the next head's
+// [n, t, d] bf16, contiguous, read in boxes of [rows, 64] with the 128-byte
+// swizzle; rows past t (and heads past n) are zero-filled, never the next head's,
+// and so are the columns past d when d is under 64 (16 or 32: a box wider than
+// the tensor's inner extent, whose rows are d * 2 bytes apart)
 inline cudaError_t tmap_rows_bf16(CUtensorMap* map, const void* base, int n, int t, int d,
                                   int rows) {
   EncodeTiledFn fn = encode_tiled();

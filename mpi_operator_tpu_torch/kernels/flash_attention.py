@@ -45,7 +45,10 @@ _NEG_INF = -1e30
 # order only.)
 BLOCK_Q = 128
 BLOCK_K = 128
-HEAD_DIMS = (64, 128)
+# Head dims the kernels are compiled at. D 16 and 32 run in the D-64 tiles:
+# the TMA box zero-fills the columns past D, and only D columns are stored.
+HEAD_DIMS = (16, 32, 64, 128)
+PROBE_DIMS = (64, 128)  # N and D of the wgmma layout probe
 
 # Launches per kernel, counted by each wrapper right after its kernel was
 # accepted by the device; ``reset_launches`` zeroes them.
@@ -306,12 +309,12 @@ def wgmma_probe_cuda(a, b, v):
     """The wgmma operand paths K1–K3 are built from, on their own: S = A·Bᵀ
     (both K-major from TMA tiles) and O = bf16(S)·V (S the register A operand
     in place, V read MN-major), both f32. a [64, D], b and v [N, D] bf16 on the
-    card, N and D in (64, 128). For the card tests; counts no launch."""
+    card, N and D in ``PROBE_DIMS``. For the card tests; counts no launch."""
     n, d = b.shape
     if a.dtype != torch.bfloat16 or b.dtype != a.dtype or v.dtype != a.dtype:
         raise ValueError("the probe takes bf16 operands")
-    if n not in HEAD_DIMS or d not in HEAD_DIMS:
-        raise ValueError(f"the probe takes N and D in {HEAD_DIMS}, got N={n}, D={d}")
+    if n not in PROBE_DIMS or d not in PROBE_DIMS:
+        raise ValueError(f"the probe takes N and D in {PROBE_DIMS}, got N={n}, D={d}")
     a = _operand(a, "a", (64, d))
     b = _operand(b, "b", (n, d))
     v = _operand(v, "v", (n, d))

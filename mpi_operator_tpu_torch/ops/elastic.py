@@ -16,9 +16,11 @@ Membership counts hosts, as ``jax.process_count()`` does there: the port
 runs one rank per chip, so the hostfile's lines are compared with
 ``bootstrap.process_count()``, never with the world size.
 
-The operator's on-demand profiling (``StepProfiler``,
-``ProfileRequestWatcher``) belongs to the ``ops/profiling`` slice, not
-ported yet: the loop marks the seam where it hooks in.
+Profiling hooks in where the JAX loop's does (``ops/profiling.py``): the
+env's step window (:class:`StepProfiler`) and the operator's requests
+(:class:`ProfileRequestWatcher`, polled at each membership check, its
+captures under ``<checkpoint dir>/profiles``) observe every step and close
+on exit.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from mpi_operator_tpu_torch.ops.checkpoint import CheckpointManager
+from mpi_operator_tpu_torch.ops.profiling import ProfileRequestWatcher, StepProfiler
 from mpi_operator_tpu_torch.ops.trainer import Trainer, TrainState
 from mpi_operator_tpu_torch.runtime import bootstrap
 from mpi_operator_tpu_torch.runtime.stepstats import StepStatsRecorder
@@ -178,9 +181,14 @@ def run_elastic(
     stats = StepStatsRecorder.from_env()
     if bootstrap.local_rank() != 0:
         stats.path = ""  # one blob per host: its first rank's
-    # ops/profiling seam (not ported yet): StepProfiler.observe and
-    # ProfileRequestWatcher.observe/poll hook in after each step and each
-    # membership check, as in the JAX loop.
+    profiler = StepProfiler()  # a no-op unless TPUJOB_PROFILE_DIR is set
+    # the operator's captures: `ctl profile` stamps the request, the
+    # controller projects it into the config dir the membership check reads
+    prof_watch = ProfileRequestWatcher(
+        stats,
+        out_root=(os.path.join(config.checkpoint_dir, "profiles")
+                  if config.checkpoint_dir else None),
+    )
     try:
         while step < total_steps:
             with stats.phase("input"):
@@ -194,6 +202,8 @@ def run_elastic(
                         ev.synchronize()
             losses.append(metrics["loss"])
             step += 1
+            profiler.observe(step)
+            prof_watch.observe(step)
             stats.step_done(step)
             if step % config.save_interval_steps == 0:
                 # async save: returns after the device→host copy; the disk
@@ -203,6 +213,7 @@ def run_elastic(
             if step % config.membership_check_every == 0:
                 with stats.phase("sync"):
                     want, preempted = _gang_state(membership)
+                prof_watch.poll(step)
                 if preempted or want != current_world:
                     # force-checkpoint BEFORE exiting: for preemption this
                     # runs inside the eviction grace window
@@ -211,7 +222,9 @@ def run_elastic(
                                    restore_s)
         _final_checkpoint(mgr, stats, step, state)
     finally:
+        prof_watch.close()
         stats.close()
+        profiler.close()
         mgr.close()
     return _result("done", state, step, metrics, start_step, losses, restore_s)
 

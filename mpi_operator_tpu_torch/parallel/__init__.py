@@ -1,1 +1,3 @@
-"""Attention across devices; this slice ports only the single-device oracle."""
+"""Work across devices: the collectives, the sharding rules, ring attention
+over ``sequence``, the MoE layer over ``expert`` and the pipeline over
+``pipe``."""

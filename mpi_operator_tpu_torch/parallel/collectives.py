@@ -19,13 +19,21 @@ is, as the JAX ones do.
 | ``broadcast_root``| ``MPI_Bcast`` / ``hvd.broadcast_global_variables``     |
 
 Point-to-point peers are global ranks (``dist.get_global_rank``): a rank's
-index along an axis is not its rank in the world.
+index along an axis is not its rank in the world. :func:`ring_shift` is
+differentiable, as JAX's ``ppermute`` is: its backward shifts the gradient
+the other way round the ring (the pipeline's hand-off trains the stages
+before it).
 
 :func:`copy_to_tp` and :func:`reduce_from_tp` are the two halves of a
 tensor-parallel block (Megatron-LM's ``f`` and ``g``): the identity whose
 backward sums over the ``tensor`` ranks, put before column-parallel
 products, and the sum over the ``tensor`` ranks whose backward is the
 identity, put after row-parallel ones. With no group both are the identity.
+:func:`scatter_to_group` and :func:`gather_from_group` are the same kind of
+pair for a value every rank of a group holds whole (the MoE layer's expert
+buffers, the pipeline's output rows): this rank's block of it, whose
+backward gathers the blocks' gradients, and the gather of the blocks, whose
+backward keeps this rank's block of the gradient.
 """
 
 from __future__ import annotations
@@ -146,13 +154,32 @@ def ring_shift_wait(requests) -> None:
         r.wait()
 
 
-def ring_shift(x: torch.Tensor, group, *, shift: int = 1) -> torch.Tensor:
-    """Rotate shards around the ring: index i's ``x`` moves to index
-    ``(i + shift) mod N`` (one send and one receive per rank; the building
-    block of ring attention and pipeline hand-off)."""
+def _ring_shift(x: torch.Tensor, group, shift: int) -> torch.Tensor:
     (out,), reqs = ring_shift_start([x], group, shift=shift)
     ring_shift_wait(reqs)
     return out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _ring_shift(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ring_shift(g, ctx.group, -ctx.shift), None, None
+
+
+def ring_shift(x: torch.Tensor, group, *, shift: int = 1) -> torch.Tensor:
+    """Rotate shards around the ring: index i's ``x`` moves to index
+    ``(i + shift) mod N`` (one send and one receive per rank; the building
+    block of ring attention and pipeline hand-off). Differentiable: the
+    gradient moves ``-shift``. Every rank of the group must take part in
+    the backward of each shift, as in its forward."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _RingShift.apply(x, group, shift)
+    return _ring_shift(x, group, shift)
 
 
 class _CopyToTP(torch.autograd.Function):
@@ -174,6 +201,50 @@ class _ReduceFromTP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _ScatterToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return x.chunk(axis_size(group), dim)[axis_index(group)].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, gather_axis=ctx.dim, tiled=True), None, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, gather_axis=dim, tiled=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.chunk(axis_size(ctx.group), ctx.dim)[axis_index(ctx.group)].contiguous(),
+                None, None)
+
+
+def scatter_to_group(x: torch.Tensor, group: Optional[object], dim: int = 0) -> torch.Tensor:
+    """This rank's block (its index's of N equal chunks along ``dim``) of a
+    value every rank of ``group`` holds whole; the backward gathers the
+    blocks' gradients, so each rank gets the whole gradient."""
+    if group is None:
+        return x
+    if x.shape[dim] % axis_size(group):
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over "
+                         f"{axis_size(group)} ranks")
+    return _ScatterToGroup.apply(x, group, dim)
+
+
+def gather_from_group(x: torch.Tensor, group: Optional[object], dim: int = 0) -> torch.Tensor:
+    """Every rank's block concatenated along ``dim`` (a whole value on each
+    rank); the backward keeps this rank's block of the gradient, as every
+    rank differentiates the same whole value."""
+    if group is None:
+        return x
+    return _GatherFromGroup.apply(x, group, dim)
 
 
 def copy_to_tp(x: torch.Tensor, group: Optional[object]) -> torch.Tensor:

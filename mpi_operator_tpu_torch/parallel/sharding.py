@@ -20,13 +20,12 @@ the collectives itself (models/llama.py); there is no partitioner to steer.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 from mpi_operator_tpu_torch.runtime.topology import (
     AXIS_DATA,
     AXIS_EXPERT,
     AXIS_FSDP,
-    AXIS_PIPE,
     AXIS_SEQ,
     AXIS_TENSOR,
     axis_group,
@@ -54,13 +53,6 @@ DEFAULT_RULES: Rules = {
     "conv_out": AXIS_FSDP,
     "stats": None,
 }
-
-# mesh axes the port cannot shard over yet, and the slice that brings each
-UNPORTED_AXES = {
-    AXIS_EXPERT: "the MoE slice (parallel/moe.py)",
-    AXIS_PIPE: "the pipeline slice (parallel/pipeline.py)",
-}
-
 
 def logical_spec(logical_axes: Sequence[Optional[str]], rules: Optional[Rules] = None) -> Spec:
     """(logical axis per array dim) → spec via the rule table. When two
@@ -101,17 +93,6 @@ def mesh_filtered_spec(spec: Spec, axis_names: Sequence[str]) -> Spec:
     while parts and parts[-1] is None:
         parts.pop()
     return tuple(parts)
-
-
-def refuse_unported_axes(sizes: Mapping[str, int]) -> None:
-    """Raise ``NotImplementedError`` for a mesh axis above 1 that the port
-    cannot shard over yet, naming the slice that brings it."""
-    for axis, slice_name in UNPORTED_AXES.items():
-        if sizes.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis}={sizes[axis]} is not ported to the PyTorch "
-                f"package yet: it comes with {slice_name}"
-            )
 
 
 def shard_dim(axes: Sequence[Optional[str]], axis_names: Sequence[str], mesh_axis: str,
@@ -178,6 +159,13 @@ def shard_model(model, mesh, rules: Optional[Rules] = None):
        ``wo``). Parameters stay whole over ``sequence``, as the rules
        leave them; the trainer sums their gradients over it.
 
+    ``expert`` and ``pipe`` are replica axes of the Llama path, as in the
+    JAX package, whose Llama names neither axis: FSDP2 runs on the
+    (``data``, ``fsdp``) sub-mesh of each of their coordinates, the rows
+    split over ``data`` × ``fsdp`` only, so every rank of one (``data``,
+    ``fsdp``, ``tensor``, ``sequence``) coordinate computes the same step
+    on the same parameters and nothing is reduced over them.
+
     A parameter the rules replicate (the norm scales) stays whole on every
     rank, outside FSDP, and the trainer reduces its gradient. Returns those
     replicated parameters, in the model's order (every rank must reduce
@@ -188,7 +176,6 @@ def shard_model(model, mesh, rules: Optional[Rules] = None):
     from mpi_operator_tpu_torch.models.llama import logical_axes, set_parallel
 
     sizes = mesh_sizes(mesh)
-    refuse_unported_axes(sizes)
     names = mesh.mesh_dim_names
     axes = logical_axes(model.config)
     tp = sizes.get(AXIS_TENSOR, 1)

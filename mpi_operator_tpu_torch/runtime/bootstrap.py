@@ -173,6 +173,12 @@ def initialize(
     global _active, _local_rank, _local_chips
     if ctx is None:
         ctx = context_from_env(environ)
+    # the persistent kernel cache (runtime/compile_cache.py): with the
+    # executor's node-local dir, the kernels build there, before anything
+    # launches one, and a relaunched gang loads them without nvcc
+    from mpi_operator_tpu_torch.runtime import compile_cache
+
+    compile_cache.configure_from_env(environ)
     dev = resolve_device(device)
     local = ctx.local_chips() if dev.type == "cuda" else max(ctx.chips_per_host, 1)
     world = ctx.num_hosts * local

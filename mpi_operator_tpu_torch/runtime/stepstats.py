@@ -18,8 +18,9 @@ its phases:
 - ``sync``     — the gang-uniform membership/preemption all-gather;
 - ``ckpt``     — checkpoint saves (periodic and forced).
 
-The port has no persistent compile cache yet, so the blob never carries
-``compile_cache``.
+With the persistent kernel cache on (``runtime/compile_cache.py``), the
+blob carries its ``compile_cache`` hits and misses, as the JAX package's
+does.
 """
 
 from __future__ import annotations
@@ -173,10 +174,16 @@ class StepStatsRecorder:
 
     def snapshot(self) -> Dict[str, Any]:
         """The bounded blob (exactly what lands in status.train_stats)."""
+        from mpi_operator_tpu_torch.runtime import compile_cache
+
         return bounded_train_stats(
             step=self._step, steps=self._steps,
             step_p50_ms=self.step_p50_ms(), buckets=self._buckets,
             profile=self._profile,
+            # only when the kernel cache is on: a warm restart's compile
+            # bucket reads as warm, not just small
+            compile_cache=(compile_cache.cache_stats()
+                           if compile_cache.is_configured() else None),
         )
 
     def flush(self, force: bool = False, now: Optional[float] = None) -> None:

@@ -15,9 +15,11 @@ order.
 - ``expert``    MoE expert parallelism
 - ``pipe``      pipeline stages
 
-The port shards over ``data``, ``fsdp``, ``tensor`` and ``sequence``
-(parallel/sharding.py, parallel/ring_attention.py); ``expert`` and
-``pipe`` come with later slices.
+The Llama path shards over ``data``, ``fsdp``, ``tensor`` and ``sequence``
+(parallel/sharding.py, parallel/ring_attention.py) and runs ``expert`` and
+``pipe`` as replicas; the MoE layer (parallel/moe.py) splits its experts
+over ``expert`` and the GPipe schedule (parallel/pipeline.py) its stages
+over ``pipe``.
 """
 
 from __future__ import annotations

@@ -18,9 +18,10 @@ manifest runs either worker:
   LLAMA_MESH    parallelism spec, e.g. "fsdp=2" or "fsdp=2,tensor=2,sequence=2"
                 (default: pure data parallelism over every rank). The port
                 shards over data, fsdp, tensor and sequence; expert and pipe
-                above 1 raise, and so do heads that tensor does not divide
-                and a sequence that sequence does not divide, before any
-                rendezvous. LLAMA_MESH_DCN adds slice counts ("data=2").
+                are replica axes (the Llama names neither, as in the JAX
+                package). Heads that tensor does not divide and a sequence
+                that sequence does not divide raise before any rendezvous.
+                LLAMA_MESH_DCN adds slice counts ("data=2").
 
 The executor launches one process per host. It runs one rank per local
 chip: with ``chips_per_host`` above 1 it spawns that many ranks (the
@@ -54,7 +55,7 @@ from mpi_operator_tpu_torch.models import llama
 from mpi_operator_tpu_torch.ops import Trainer, TrainerConfig
 from mpi_operator_tpu_torch.ops.data import make_global_batch, synthetic_tokens
 from mpi_operator_tpu_torch.ops.elastic import EXIT_RESTART, ElasticConfig, run_elastic
-from mpi_operator_tpu_torch.parallel.sharding import check_head_split, refuse_unported_axes
+from mpi_operator_tpu_torch.parallel.sharding import check_head_split
 from mpi_operator_tpu_torch.runtime import bootstrap
 from mpi_operator_tpu_torch.runtime.topology import (
     AXIS_SEQ,
@@ -89,7 +90,6 @@ def main(
     plan = MeshPlan.parse(mesh_spec, dcn_spec) if mesh_spec else None
     if plan is not None:
         sizes = dict(plan.ordered())
-        refuse_unported_axes(sizes)
         cfg = CONFIGS[env.get("LLAMA_CONFIG", "tiny")]()
         check_head_split(cfg.n_heads, cfg.n_kv_heads, sizes.get(AXIS_TENSOR, 1))
         n_seq = sizes.get(AXIS_SEQ, 1)
@@ -100,7 +100,7 @@ def main(
     # explicit manifest path wins; otherwise the per-job directory on the
     # shared checkpoint volume the node agent advertised (--ckpt-dir)
     ckpt_dir = env.get("LLAMA_CKPT", "") or bootstrap.default_checkpoint_dir(ctx, env) or ""
-    device = bootstrap.initialize(ctx, device=device, local_rank=local_rank,
+    device = bootstrap.initialize(ctx, device=device, environ=env, local_rank=local_rank,
                                   group=plan is not None or bool(ckpt_dir))
     try:
         return _train(env, ctx, device, plan, ckpt_dir, local_rank, on_step)

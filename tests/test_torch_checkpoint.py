@@ -3,6 +3,8 @@
 - Reshard on load: a checkpoint of a 4-rank ``data=2,fsdp=2`` gang restores
   onto a 2-rank ``fsdp=2`` gang with every parameter and moment bitwise
   equal (ranks are fresh processes, gloo on the CPU).
+- Without a replica axis: a checkpoint of ``fsdp=2,expert=2`` (or
+  ``pipe=2``) restores bitwise onto ``fsdp=2``.
 - Across ``tensor`` sizes: a checkpoint of a ``fsdp=2,tensor=2`` gang
   restores onto ``tensor=2`` and onto ``fsdp=2``; the restored runs' losses
   equal the unbroken run's within 1e-6 relative (the tensor-parallel sums
@@ -101,6 +103,23 @@ def test_four_rank_checkpoint_restores_bitwise_on_two_ranks(tmp_path):
     for name in a:
         assert np.array_equal(a[name], b[name]), name
     assert os.path.exists(tmp_path / "ckpt" / "2" / ".metadata")
+
+
+@pytest.mark.parametrize("plan", ["fsdp=2,expert=2", "fsdp=2,pipe=2"])
+def test_replica_axis_checkpoint_restores_bitwise_without_it(plan, tmp_path):
+    """A gang whose ``expert`` or ``pipe`` ranks are replicas saves each shard
+    once (DCP keeps one copy of what several ranks hold) and restores onto
+    a plan without the replica axis, every parameter and moment bitwise."""
+    common = {"dir": str(tmp_path / "ckpt")}
+    saved = run_ranks(__file__, 4, {**common, "phase": "save", "plan": plan,
+                                    "seed": 0, "out": str(tmp_path / "a.npz")})
+    restored = run_ranks(__file__, 2, {**common, "phase": "restore", "plan": "fsdp=2",
+                                       "seed": 1, "out": str(tmp_path / "b.npz")})
+    assert saved == restored == {"step": 2}
+    a, b = dict(np.load(tmp_path / "a.npz")), dict(np.load(tmp_path / "b.npz"))
+    assert set(a) == set(b) and len(a) == 3 * len(list(llama.logical_axes(CFG)))
+    for name in a:
+        assert np.array_equal(a[name], b[name]), name
 
 
 def test_tensor_parallel_checkpoint_restores_on_other_tensor_sizes(tmp_path):

@@ -1,7 +1,8 @@
 """The port's multi-device dry run (``mpi_operator_tpu_torch.dryrun``), the
 twin of ``__graft_entry__.dryrun_multichip``: the same plan for every
 device count, and one finite step of ``tiny()`` on 8 gloo CPU ranks
-(``fsdp=2,tensor=2,sequence=2``), then the DCN step on two slices.
+(``fsdp=2,tensor=2,sequence=2``), then the DCN step on two slices, the EP
+step (8-way experts) and the PP step (4 stages beside ``data=2``).
 """
 
 import math
@@ -31,7 +32,9 @@ def test_dryrun_takes_one_finite_step_on_eight_gloo_ranks(capfd):
     assert math.isfinite(record["loss"]) and math.isfinite(record["dcn_loss"])
     err = capfd.readouterr().err
     assert "[dryrun] OK: 8 devices" in err and "[dryrun] DCN OK: 2 slices x 4 devices" in err
-    assert "EP OK" not in err and "PP OK" not in err
+    assert "[dryrun] EP OK: 8-way experts" in err and "[dryrun] PP OK: 4-stage pipeline" in err
+    assert (record["ep_experts"], record["pp_stages"]) == (8, 4)
+    assert record["ep_diff"] <= dryrun.TOL_LOCAL and record["pp_diff"] <= dryrun.TOL_LOCAL
 
 
 def test_dryrun_runs_on_cuda_unless_asked(monkeypatch):

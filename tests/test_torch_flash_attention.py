@@ -212,6 +212,6 @@ def test_wrappers_refuse_other_devices_and_bad_layout():
     with pytest.raises(ValueError, match="bf16"):
         tfa.flash_fwd_cuda(*(torch.zeros(1, 2, 8, 64),) * 3, True, 1.0)
     with pytest.raises(ValueError, match="head_dim"):
-        tfa.flash_fwd_cuda(*(torch.zeros(1, 2, 8, 16, dtype=torch.bfloat16),) * 3, True, 1.0)
+        tfa.flash_fwd_cuda(*(torch.zeros(1, 2, 8, 48, dtype=torch.bfloat16),) * 3, True, 1.0)
     with pytest.raises(ValueError, match="layout"):
         tfa.flash_attention(q, q, q, layout="bthx")

@@ -1,7 +1,7 @@
 """The port's copies of the JAX package's mesh, sharding-rule and step-stats
-pieces, held to the originals; the refusals of what the port does not
-shard over yet (``expert``, ``pipe``), and the checks on what it now does
-(``tensor``, ``sequence``).
+pieces, held to the originals; what the rules send to each mesh axis of
+the Llama path (``tensor`` splits, ``sequence``, ``expert`` and ``pipe``
+replicate), and the checks on what cannot split.
 
 - ``MeshPlan`` (parse, ordered, sizes, errors), ``_hybrid_flat_mesh``'s
   slice-major layout and ``mesh_from_context``'s checks;
@@ -134,20 +134,17 @@ def _fake_mesh(**sizes):
 
 @pytest.mark.parametrize("axis", ["tensor", "sequence", "expert", "pipe"])
 def test_shard_model_refuses_unported_axes(axis):
-    """``expert`` and ``pipe`` raise, naming their slice. ``tensor`` and
-    ``sequence`` are ported (the multi-rank tests in
-    tests/test_torch_tensor_parallel.py shard over them): the rules send
-    the head, FFN and vocab dimensions to ``tensor`` and nothing to
-    ``sequence``, and heads that ``tensor`` does not divide raise
-    ``ValueError`` before anything is sharded."""
+    """No axis of the Llama path is refused any more (the multi-rank tests
+    in tests/test_torch_tensor_parallel.py and
+    tests/test_torch_replica_axes.py run over each): the rules send the
+    head, FFN and vocab dimensions to ``tensor`` and nothing to
+    ``sequence``, ``expert`` or ``pipe`` (the Llama names neither of the
+    last two, so their ranks are replicas), and heads that ``tensor`` does
+    not divide raise ``ValueError`` before anything is sharded, whatever
+    axis sits beside it."""
     import dataclasses
 
-    model = tllama.Llama(tllama.tiny(), device="meta")
-    if axis in ("expert", "pipe"):
-        with pytest.raises(NotImplementedError, match=f"{axis}=2 is not ported"):
-            sharding.shard_model(model, _fake_mesh(data=1, fsdp=1, **{axis: 2}))
-        return
-    sharding.refuse_unported_axes({axis: 2})
+    assert not hasattr(sharding, "refuse_unported_axes")
     names = ("data", "fsdp", axis)
     axes = tllama.logical_axes(tllama.tiny())
     split = {n: sharding.shard_dim(a, names, axis) for n, a in axes.items()}

@@ -4,9 +4,8 @@
   JAX package (an AST scan, so a lazy import inside a function counts too).
 - Its entry points run on CUDA unless the caller asks for the CPU: without
   a card they raise; they never fall back to the CPU.
-- A gang without a coordinator address, a mesh axis the port does not shard
-  over yet, a plan that cannot split the model and a DCN spec without a
-  mesh are refused before any rendezvous.
+- A gang without a coordinator address, a plan that cannot split the model
+  and a DCN spec without a mesh are refused before any rendezvous.
 - The copies it keeps of the JAX package's framework-free pieces (env
   names, context parsing, the token stream) agree with the originals.
 """
@@ -62,6 +61,9 @@ def _forbidden(name):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     sources = list(_port_sources())
     assert len(sources) >= 10
+    scanned = {os.path.relpath(p, os.path.join(REPO, "mpi_operator_tpu_torch")) for p in sources}
+    assert {"ops/profiling.py", "runtime/compile_cache.py", "parallel/moe.py",
+            "parallel/pipeline.py"} <= scanned
     bad = [
         f"{os.path.relpath(p, REPO)}: {m}"
         for p in sources for m in _imported_modules(p) if _forbidden(m)
@@ -120,24 +122,24 @@ def test_bench_module_exits_nonzero_without_cuda():
     ("pipe", "pipeline"),
 ])
 def test_worker_refuses_unported_mesh_axes(axis, slice_name):
-    """``expert`` and ``pipe`` raise, naming their slice. ``tensor`` and
-    ``sequence`` came with the tensor-parallel and ring-attention slices:
-    the plan passes the port's checks and meets the gang's size instead (one
-    rank here, four wanted); heads or a sequence that the axis does not
-    divide raise ``ValueError`` before any rendezvous."""
-    if axis in ("expert", "pipe"):
-        with pytest.raises(NotImplementedError, match=f"{axis}=2 is not ported.*{slice_name}"):
-            llama_worker.main(device="cpu", environ={"LLAMA_MESH": f"fsdp=2,{axis}=2"})
-        assert not torch.distributed.is_initialized()
-        return
+    """No mesh axis is refused any more: ``tensor`` and ``sequence`` came
+    with the tensor-parallel and ring-attention slices, ``expert`` and
+    ``pipe`` run as replicas of the Llama step (the MoE and pipeline slice).
+    The plan passes the port's checks and meets the gang's size instead
+    (one rank here, four wanted); heads or a sequence that ``tensor`` or
+    ``sequence`` does not divide raise ``ValueError`` before any
+    rendezvous, also beside a replica axis."""
     with pytest.raises(ValueError, match="mesh plan wants 4 devices"):
         llama_worker.main(device="cpu", environ={"LLAMA_MESH": f"fsdp=2,{axis}=2"})
     assert not torch.distributed.is_initialized()
     # tiny() has 4 q heads and 2 kv heads; LLAMA_SEQ defaults to 64
     bad = {"tensor": ("tensor=4", "tensor=4 does not divide"),
-           "sequence": ("sequence=3", "LLAMA_SEQ=64 does not split over sequence=3")}[axis]
+           "sequence": ("sequence=3", "LLAMA_SEQ=64 does not split over sequence=3"),
+           "expert": ("expert=2,tensor=4", "tensor=4 does not divide"),
+           "pipe": ("pipe=2,sequence=3", "LLAMA_SEQ=64 does not split over sequence=3")}[axis]
     with pytest.raises(ValueError, match=bad[1]):
         llama_worker.main(device="cpu", environ={"LLAMA_MESH": bad[0]})
+    assert not torch.distributed.is_initialized()
     assert not torch.distributed.is_initialized()
 
 

@@ -37,34 +37,75 @@ BATCH, SEQ = 4, 32
 
 
 def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port that binds now, from below the kernel's ephemeral range: the
+    gangs' own connections take ephemeral ports, and one of them could take
+    a port chosen there before rank 0 binds it."""
+    import random
+
+    while True:
+        port = random.randrange(20000, 32000)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+
+
+def _run_once(script, n, args, timeout):
+    """One launch of the ranks: [(exit code, stdout, stderr)] per rank. Output
+    goes to files (a full pipe would stall a rank in a collective); once a
+    rank fails, the rest get 10 s to finish before they are killed."""
+    import tempfile
+    import time
+
+    # one thread per rank: the ranks share the test machine's cores
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", TPUJOB_NUM_HOSTS="1",
+               TPUJOB_CHIPS_PER_HOST=str(n),
+               TPUJOB_COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        files = [(open(os.path.join(tmp, f"{r}.out"), "w+"), open(os.path.join(tmp, f"{r}.err"), "w+"))
+                 for r in range(n)]
+        procs = [subprocess.Popen([sys.executable, script, str(r), json.dumps(args)], cwd=REPO,
+                                  env=env, stdout=o, stderr=e, text=True)
+                 for r, (o, e) in enumerate(files)]
+        deadline, failed_at = time.monotonic() + timeout, None
+        try:
+            while any(p.poll() is None for p in procs):
+                now = time.monotonic()
+                if failed_at is None and any(p.poll() not in (None, 0) for p in procs):
+                    failed_at = now
+                if now > deadline or (failed_at is not None and now - failed_at > 10):
+                    break
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait(timeout=30)
+        results = []
+        for p, (o, e) in zip(procs, files):
+            o.seek(0)
+            e.seek(0)
+            results.append((p.returncode, o.read(), e.read()))
+            o.close()
+            e.close()
+        return results
 
 
 def run_ranks(script, n, args, *, timeout=240):
     """Run ``script`` as ranks 0..n-1 of one host with n chips (fresh
     processes, gloo over a free localhost port). Returns rank 0's last
-    stdout line parsed as JSON; fails on any rank's non-zero exit."""
-    # one thread per rank: the ranks share the test machine's cores
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", TPUJOB_NUM_HOSTS="1",
-               TPUJOB_CHIPS_PER_HOST=str(n),
-               TPUJOB_COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}")
-    procs = [
-        subprocess.Popen([sys.executable, script, str(r), json.dumps(args)], cwd=REPO,
-                         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(n)
-    ]
-    try:
-        outs = [p.communicate(timeout=timeout) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate(timeout=30)
-    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{err[-4000:]}"
-    return json.loads(outs[0][0].strip().splitlines()[-1])
+    stdout line parsed as JSON; fails on any rank's non-zero exit. A gang
+    whose rendezvous port was taken between choosing and binding it
+    (another test's process got there first) is launched once more on a
+    new port."""
+    results = _run_once(script, n, args, timeout)
+    if any(rc != 0 and "EADDRINUSE" in err for rc, _, err in results):
+        results = _run_once(script, n, args, timeout)
+    for r, (rc, _, err) in enumerate(results):
+        assert rc == 0, f"rank {r} exited {rc}:\n{err[-4000:]}"
+    return json.loads(results[0][1].strip().splitlines()[-1])
 
 
 def gang(local_rank, plan):

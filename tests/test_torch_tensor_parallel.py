@@ -46,16 +46,19 @@ def _rank(local_rank, args):
     from mpi_operator_tpu_torch.runtime import bootstrap
 
     mesh = gang(local_rank, args["plan"])
-    cfg = dataclasses.replace(llama.tiny(), compute_dtype=torch.float32,
+    steps = args.get("steps", STEPS)
+    cfg = dataclasses.replace(llama.tiny(), compute_dtype=getattr(torch, args.get("dtype",
+                                                                                  "float32")),
                               remat_layers=args["remat"])
     model = llama.Llama(cfg, device="cpu")
     model.load_state_dict({k: torch.from_numpy(v) for k, v in np.load(args["weights"]).items()})
-    trainer = Trainer(llama.loss_fn, TrainerConfig(**FIELDS), mesh=mesh)
+    trainer = Trainer(llama.loss_fn, TrainerConfig(**{**FIELDS, "total_steps": steps}),
+                      mesh=mesh)
     state = trainer.init_state(model)
     placements = {n: shard_dims(p) for n, p in model.named_parameters()}
     stream = synthetic_tokens(global_batch=BATCH, seq_len=SEQ, vocab=cfg.vocab)
     losses, norms = [], []
-    for _ in range(STEPS):
+    for _ in range(steps):
         state, m = trainer.train_step(state, make_global_batch(next(stream), "cpu", mesh))
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())
@@ -67,7 +70,7 @@ def _rank(local_rank, args):
     bootstrap.shutdown()
 
 
-def _jax_run(plan, tree):
+def _jax_run(plan, tree, steps=STEPS, dtype="float32"):
     import dataclasses
 
     import jax
@@ -77,26 +80,24 @@ def _jax_run(plan, tree):
     from mpi_operator_tpu.ops.data import make_global_batch, synthetic_tokens
     from mpi_operator_tpu.runtime import MeshPlan, build_mesh
 
-    jc = dataclasses.replace(jllama.tiny(), compute_dtype=jax.numpy.float32)
+    jc = dataclasses.replace(jllama.tiny(), compute_dtype=getattr(jax.numpy, dtype))
     p = MeshPlan.parse(plan)
     mesh = build_mesh(p, jax.devices()[:p.total_devices])
     tr = Trainer(lambda prm, b: jllama.loss_fn(jc, prm, b, mesh=mesh), jllama.logical_axes(jc),
-                 mesh, TrainerConfig(**FIELDS))
+                 mesh, TrainerConfig(**{**FIELDS, "total_steps": steps}))
     state = tr.init_state(jax.tree.map(jax.numpy.asarray, tree))
     stream = synthetic_tokens(global_batch=BATCH, seq_len=SEQ, vocab=jc.vocab)
     losses, norms = [], []
-    for _ in range(STEPS):
+    for _ in range(steps):
         state, m = tr.train_step(state, make_global_batch(mesh, next(stream)))
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     return losses, norms, tr.params_sharding(), jax.tree.map(np.asarray, state.params)
 
 
-def check_step_against_jax(plan, tmp_path, script=__file__):
-    """Run the plan's gang (``script``'s ``_rank``) and the JAX trainer, and
-    hold them together. A plan of three axes runs the per-layer remat (the
-    JAX side's tiny() does not: it changes no value), so the ring sits
-    between the checkpointed regions under FSDP2's hooks."""
+def jax_tree_weights(tmp_path):
+    """The JAX init tree of tiny() and the port's state dict of it, saved
+    for the ranks: (tree, path)."""
     import jax
 
     from mpi_operator_tpu.models import llama as jllama
@@ -105,11 +106,22 @@ def check_step_against_jax(plan, tmp_path, script=__file__):
     tree = jax.tree.map(np.asarray, jllama.init(jllama.tiny(), jax.random.PRNGKey(0)))
     weights = tmp_path / "w.npz"
     np.savez(weights, **{k: v.numpy() for k, v in tllama.params_from_jax(tree).items()})
+    return tree, weights
+
+
+def check_step_against_jax(plan, tmp_path, script=__file__, steps=STEPS):
+    """Run the plan's gang (``script``'s ``_rank``) and the JAX trainer, and
+    hold them together. A plan of three axes runs the per-layer remat (the
+    JAX side's tiny() does not: it changes no value), so the ring sits
+    between the checkpointed regions under FSDP2's hooks."""
+    from mpi_operator_tpu_torch.models import llama as tllama
+
+    tree, weights = jax_tree_weights(tmp_path)
     sizes = {a.split("=")[0]: int(a.split("=")[1]) for a in plan.split(",")}
     got = run_ranks(script, int(np.prod(list(sizes.values()))),
                     {"plan": plan, "weights": str(weights), "out": str(tmp_path / "out.npz"),
-                     "remat": len(sizes) == 3})
-    losses, norms, shardings, params = _jax_run(plan, tree)
+                     "remat": len(sizes) == 3, "steps": steps})
+    losses, norms, shardings, params = _jax_run(plan, tree, steps)
 
     np.testing.assert_allclose(got["losses"], losses, rtol=TOL)
     np.testing.assert_allclose(got["norms"], norms, rtol=TOL)
