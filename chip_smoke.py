@@ -80,7 +80,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
    gradient); ``run_pipeline``'s fall-back (no ``pipe`` axis: NCCL puts
    no two ranks on one card) on the card against the CPU (1e-5). The
    multi-rank EP and PP steps are ``python -m mpi_operator_tpu_torch.dryrun
-   4`` on four cards.
+   4`` on four cards;
+13. quant_matmul: the int8 and fp8 FFN products (``torch._int_mm``,
+   ``torch._scaled_mm``: library calls, as ``lax.dot_general`` is in the
+   JAX package) against their plain versions at the bench's FFN shapes
+   (M 4 x 2048; d_model 2048 -> d_ff 7168 and back): int8 bit for bit, fp8
+   within one bf16 ulp of each value plus 1e-3 of max (the f32 sums round
+   in another order); ``quant_error``; each product timed beside the bf16
+   ``torch.matmul`` of the shape and its bound (bytes, or operations at the
+   card's int8 / fp8 peak);
+14. the Llama bench at ``BENCH_QUANT=int8`` and ``fp8`` (``bench_llama``,
+   batch 4, seq 2048, 1 warm-up and 3 timed steps each): finite losses whose
+   first is within 5 % of the bf16 run's first (phase 5's, the same weights
+   and batch), 12 launches of each of K1–K3 a step, and 6 quantized products
+   per layer a step (3 forward, 3 in the remat's recompute);
+15. ResNet: resnet26 at image 64 on the card against the CPU from the same
+   weights (loss 1e-2 relative, grad norm 5e-2, as phase 4 holds the Llama);
+   then ``bench.bench_resnet`` at full width, ResNet-101, image 224, batch
+   128, ``BENCH_INPUT=stream`` (uint8 batches through ``ops.data.prefetch``,
+   the normalize on the card), its defaults (5 warm-up and 3 timed calls of
+   10 steps), and the same with ``fixed`` input (2 warm-up calls): images/s,
+   step ms, MFU, set-up seconds and peak memory, stream against fixed;
+16. the workers as the operator launches them (``python -m
+   mpi_operator_tpu_torch.workers.<name>`` with the executor's one-rank
+   ``TPUJOB_*`` env, on the card): ResNet at ``examples/resnet.yaml``'s
+   config, MNIST (20 steps) and π. tests/test_torch_operator_cuda.py runs
+   the manifests themselves through the operator on the card.
 
 The line before the last is a JSON object with one entry per kernel (its
 registers and spill bytes per head dim from ptxas, from phase 7 its
@@ -136,6 +161,13 @@ SMALL_D = (16, 32)
 # the worker's manifest env (examples/llama.yaml, as the operator test runs it)
 MANIFEST_ENV = {"LLAMA_CONFIG": "tiny", "LLAMA_BATCH": "2", "LLAMA_SEQ": "128",
                 "LLAMA_STEPS": "3"}
+# the card's dense int8 / fp8 tensor-core peaks (NVIDIA data sheet, SXM)
+QUANT_OPS_PER_S = {"int8": 1979e12, "fp8": 1979e12}
+FFN_SHAPES = [(4 * 2048, 2048, 7168), (4 * 2048, 7168, 2048)]  # M, K, N of the bench's FFN
+# examples/resnet.yaml's worker env, and the executor's env of a one-rank job
+RESNET_MANIFEST_ENV = {"RESNET_DEPTH": "resnet26", "RESNET_BATCH": "4", "RESNET_STEPS": "3",
+                       "RESNET_IMAGE": "64", "RESNET_CLASSES": "10"}
+ONE_RANK_ENV = {"TPUJOB_NUM_HOSTS": "1", "TPUJOB_HOST_ID": "0", "TPUJOB_CHIPS_PER_HOST": "1"}
 
 
 def _grad_bound(ref) -> float:
@@ -428,11 +460,12 @@ def phase_reference() -> None:
         fail("the small Llama on the card disagrees with its CPU reference")
 
 
-def phase_main(smi: str) -> dict:
+def phase_main(smi: str) -> tuple:
     """The benchmark entry point itself, ``bench.bench_llama``: it checks K1
     at the gate shape, then trains. The counts are zeroed here just before it
     and read just after; the benchmark zeroes them again after its K1 check,
-    so what is read is the training run's launches alone."""
+    so what is read is the training run's launches alone. Returns them and
+    the first loss."""
     from mpi_operator_tpu_torch import bench
     from mpi_operator_tpu_torch.kernels import flash_attention as fa
 
@@ -460,23 +493,32 @@ def phase_main(smi: str) -> dict:
     want = 12 * (warmup + steps)  # bench_single_chip's 12 layers, once per step each
     if launches != {name: want for name in REPLACES}:
         fail(f"expected {want} launches of each kernel on the main path, got {launches}")
-    return launches
+    return launches, losses[0]
 
 
-def _worker(env: dict, timeout: float) -> tuple:
-    """One incarnation of the worker as the operator launches it; returns
-    (exit code, its JSON record, wall seconds)."""
+def _run_worker(module: str, env: dict, timeout: float, args=()) -> tuple:
+    """One incarnation of a worker as the operator launches it; returns
+    (exit code, its last stdout line, wall seconds)."""
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "mpi_operator_tpu_torch.workers.llama_worker"],
+        [sys.executable, "-m", f"mpi_operator_tpu_torch.workers.{module}", *args],
         env={**os.environ, **env}, cwd=os.path.dirname(os.path.abspath(__file__)),
         capture_output=True, text=True, timeout=timeout,
     )
     wall = time.perf_counter() - t0
     lines = proc.stdout.strip().splitlines()
-    if not lines or not lines[-1].startswith("{"):
-        fail(f"the worker printed no record (rc {proc.returncode}):\n{proc.stderr[-3000:]}")
-    return proc.returncode, json.loads(lines[-1]), wall
+    if not lines:
+        fail(f"{module} printed nothing (rc {proc.returncode}):\n{proc.stderr[-3000:]}")
+    return proc.returncode, lines[-1], wall
+
+
+def _worker(env: dict, timeout: float) -> tuple:
+    """One incarnation of the Llama worker; returns (exit code, its JSON
+    record, wall seconds)."""
+    rc, line, wall = _run_worker("llama_worker", env, timeout)
+    if not line.startswith("{"):
+        fail(f"the worker printed no record (rc {rc}): {line}")
+    return rc, json.loads(line), wall
 
 
 def _tree_bytes(path: str) -> int:
@@ -799,13 +841,184 @@ def phase_moe_pipeline(smi: str) -> dict:
     return {"fwd_ms": fwd_ms, "fwd_bwd_ms": fwd_bwd_ms, "errs": errs, "pipe_err": e_pipe}
 
 
+def _quant_bound(m: int, k: int, n: int, precision: str):
+    """(least ms, what bounds it) of one quantized product: its 1-byte
+    operands read and its 4-byte accumulator written once against the
+    card's memory rate, or 2·M·K·N operations at the type's peak."""
+    bytes_ms = 1e3 * (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 2 * m * k * n / QUANT_OPS_PER_S[precision]
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def phase_quant(smi: str) -> list:
+    """Phase 13 (see the module docstring). Returns one record per
+    precision and shape."""
+    from mpi_operator_tpu_torch.kernels import quant_matmul as qm
+
+    out = []
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for m, k, n in FFN_SHAPES:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(torch.bfloat16)
+        bf16_ms = _time_ms(lambda: x @ w)
+        for precision in ("int8", "fp8"):
+            qm.reset_launches()
+            got = qm.forward_2d(x, w, precision)
+            torch.cuda.synchronize()
+            if qm.launches[precision] != 1:
+                fail(f"the {precision} product was not launched on the card: {qm.launches}")
+            want = qm.forward_2d(x.cpu(), w.cpu(), precision)
+            err = _max_err(got.cpu(), want) / float(want.float().abs().max())
+            # fp8: the f32 sums round in another order, so a bf16 output may
+            # round the other way: one bf16 ulp of the value (2^-7 of it at
+            # most) beside 1e-3 of max for the sums near zero
+            slack = (got.cpu().float() - want.float()).abs() - 2 ** -7 * want.float().abs()
+            bound_err = 0.0 if precision == "int8" else 1e-3
+            if precision == "fp8":
+                err = float(slack.max()) / float(want.float().abs().max())
+            qerr = qm.quant_error(x, w, precision=precision)
+            x32, w32 = x.float(), w.float()
+            qmax = qm._QMAX[precision]
+            xq = qm._quantize(x32, qm._scale(x32, -1, qmax), precision)
+            wq = qm._quantize(w32, qm._scale(w32, 0, qmax), precision)
+            prod_ms = _time_ms(lambda: qm.product_cuda(xq, wq, precision))
+            fwd_ms = _time_ms(lambda: qm.forward_2d(x, w, precision))
+            plain_ms = _time_ms(lambda: xq.float() @ wq.float(), reps=3)
+            bound_ms, bound_by = _quant_bound(m, k, n, precision)
+            rec = dict(precision=precision, m=m, k=k, n=n, max_rel_err=err, quant_error=qerr,
+                       product_ms=prod_ms, forward_ms=fwd_ms, bf16_matmul_ms=bf16_ms,
+                       plain_f32_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            log(f"[quant] {precision} [{m}x{k}] @ [{k}x{n}]: card vs plain {err:.3e} of max "
+                f"{'beyond one bf16 ulp ' if precision == 'fp8' else ''}(bound {bound_err:.0e}), "
+                f"quant_error {qerr:.4f}; product {prod_ms:.4f} ms "
+                f"({100 * bound_ms / prod_ms:.1f} % of its {bound_by} bound {bound_ms:.4f} ms), "
+                f"whole forward (scales, quantize, product, epilogue) {fwd_ms:.4f} ms, bf16 "
+                f"matmul {bf16_ms:.4f} ms, f32 product of the quantized values {plain_ms:.3f} "
+                f"ms [{smi}]")
+            if not err <= bound_err:
+                fail(f"the {precision} product disagrees with its plain version: {err}")
+            if not qerr < (0.02 if precision == "int8" else 0.06):
+                fail(f"the {precision} product's quant_error is {qerr}")
+            out.append(rec)
+            del got, want, xq, wq, x32, w32
+        del x, w
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_quant_bench(smi: str, bf16_first_loss: float) -> dict:
+    """Phase 14: the Llama bench with quantized FFN products."""
+    from mpi_operator_tpu_torch import bench
+    from mpi_operator_tpu_torch.kernels import flash_attention as fa
+
+    out = {}
+    steps, warmup = 3, 1
+    for precision in ("int8", "fp8"):
+        fa.reset_launches()
+        rec = bench.bench_llama(seq_len=2048, per_chip_batch=4, steps=steps, warmup=warmup,
+                                device="cuda", check_kernel=False, quant=precision)
+        launches, losses = dict(fa.launches), rec["losses"]
+        log(f"[quant-bench] {precision}: losses {losses}, step_ms {rec['step_ms']:.2f}, "
+            f"tokens/s {rec['value']:.1f}, mfu (bf16 peak) {rec['mfu']:.4f}, "
+            f"max_memory_allocated {rec['max_memory_allocated']}, flash launches {launches}, "
+            f"quantized products {rec['quant_launches']} [{smi}]")
+        n = warmup + steps
+        if rec["matmul_precision"] != precision or len(losses) != n:
+            fail(f"the {precision} bench did not run as asked: {rec}")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"non-finite {precision} loss: {losses}")
+        if not abs(losses[0] - bf16_first_loss) <= 0.05 * bf16_first_loss:
+            fail(f"the {precision} first loss {losses[0]} is not within 5 % of bf16's "
+                 f"{bf16_first_loss}")
+        if launches != {name: 12 * n for name in REPLACES}:
+            fail(f"expected {12 * n} launches of each kernel at {precision}, got {launches}")
+        if rec["quant_launches"][precision] != 6 * 12 * n:
+            fail(f"expected {6 * 12 * n} {precision} products, got {rec['quant_launches']}")
+        out[precision] = rec
+    return out
+
+
+def phase_resnet(smi: str) -> dict:
+    """Phase 15: the small ResNet on the card against the CPU, then the
+    ResNet-101 bench, streamed and fixed."""
+    from mpi_operator_tpu_torch import bench
+    from mpi_operator_tpu_torch.models import resnet
+    from mpi_operator_tpu_torch.ops.data import make_global_batch, synthetic_imagenet
+    from mpi_operator_tpu_torch.ops.trainer import global_norm
+
+    cfg = resnet.Config(depth="resnet26", image_size=64, num_classes=10)
+    host = next(synthetic_imagenet(global_batch=8, image_size=64, num_classes=10,
+                                   process_index=0, process_count=1))
+    base = resnet.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = resnet.ResNet(cfg, device=dev)
+        model.load_state_dict(base.state_dict())
+        loss = resnet.loss_fn(model, make_global_batch(host, dev))
+        loss.backward()
+        res[dev] = (loss.item(), global_norm([p.grad for p in model.parameters()]).item())
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = res["cuda"], res["cpu"]
+    log(f"[resnet] resnet26 image 64 batch 8 bf16: loss cuda {l_gpu:.6f} cpu {l_cpu:.6f}; "
+        f"grad norm cuda {g_gpu:.6f} cpu {g_cpu:.6f}")
+    if not (abs(l_gpu - l_cpu) <= 1e-2 * abs(l_cpu) and abs(g_gpu - g_cpu) <= 5e-2 * g_cpu):
+        fail("the small ResNet on the card disagrees with its CPU reference")
+    del model, base
+    out = {"reference": res}
+    for mode, warmup in (("stream", None), ("fixed", 2)):
+        torch.cuda.empty_cache()
+        rec = bench.bench_resnet(input_mode=mode, warmup=warmup, device="cuda")
+        log(f"[resnet] bench {rec['model']} {rec['image_size']} px batch {rec['global_batch']} "
+            f"input {mode}: {rec['value']:.2f} images/s ({rec['vs_baseline']:.3f} x 154.2), "
+            f"step_ms {rec['step_ms']:.2f}, mfu {rec['mfu']:.4f}, setup_s {rec['setup_s']:.2f}, "
+            f"warmup_s {rec['warmup_s']:.2f}, max_memory_allocated "
+            f"{rec['max_memory_allocated']}, last losses {rec['losses'][-3:]} [{smi}]")
+        if (rec["model"], rec["image_size"], rec["global_batch"]) != ("resnet101", 224, 128):
+            fail(f"the ResNet bench did not run at full width: {rec}")
+        if not all(math.isfinite(x) for x in rec["losses"]):
+            fail(f"non-finite ResNet loss ({mode}): {rec['losses']}")
+        out[mode] = rec
+    log(f"[resnet] stream against fixed: {out['stream']['step_ms']:.2f} / "
+        f"{out['fixed']['step_ms']:.2f} ms a step "
+        f"({out['stream']['step_ms'] / out['fixed']['step_ms']:.3f}) [{smi}]")
+    return out
+
+
+def phase_workers(smi: str) -> dict:
+    """Phase 16: the ResNet, MNIST and π workers as the operator launches
+    them, one rank each, on the card."""
+    out = {}
+    rc, line, wall = _run_worker("resnet_worker", {**ONE_RANK_ENV, **RESNET_MANIFEST_ENV}, 300)
+    log(f"[workers] resnet_worker {RESNET_MANIFEST_ENV}: rc {rc}, {wall:.1f}s, {line} [{smi}]")
+    rec = json.loads(line) if line.startswith("{") else {}
+    if rc != 0 or rec.get("backend") != "cuda" or not math.isfinite(rec.get("loss", math.nan)):
+        fail(f"the ResNet worker failed on the card: rc {rc}, {line}")
+    out["resnet"] = rec
+    rc, line, wall = _run_worker("mnist_worker", ONE_RANK_ENV, 300, ("20",))
+    log(f"[workers] mnist_worker 20 steps: rc {rc}, {wall:.1f}s, {line} [{smi}]")
+    if rc != 0 or not line.startswith("mnist: loss"):
+        fail(f"the MNIST worker failed on the card: rc {rc}, {line}")
+    out["mnist"] = line
+    rc, line, wall = _run_worker("pi_worker", ONE_RANK_ENV, 300, ("200000",))
+    log(f"[workers] pi_worker 200000 points: rc {rc}, {wall:.1f}s, {line} [{smi}]")
+    try:
+        pi = float(line.split("pi is approximately ")[1].split()[0])
+    except (IndexError, ValueError):
+        fail(f"the pi worker printed no estimate: rc {rc}, {line}")
+    # within 5 standard errors of π: 4·sqrt(p(1 - p)/n), p = π/4
+    p = math.pi / 4
+    if rc != 0 or not abs(pi - math.pi) <= 5 * 4 * math.sqrt(p * (1 - p) / 200_000):
+        fail(f"the pi worker's estimate is off: rc {rc}, {line}")
+    out["pi"] = pi
+    return out
+
+
 def main() -> None:
     smi = phase_device()
     resources = phase_build()
     errs = phase_kernels()
     times = phase_timing(smi)
     phase_reference()
-    launches = phase_main(smi)
+    launches, bf16_first_loss = phase_main(smi)
     phase_gang(smi)
     ring = phase_ring(smi)
     small_d = phase_small_d(smi)
@@ -813,6 +1026,11 @@ def main() -> None:
     phase_profiling(smi)
     phase_compile_cache(smi)
     phase_moe_pipeline(smi)
+    quant = phase_quant(smi)
+    phase_quant_bench(smi, bf16_first_loss)
+    phase_resnet(smi)
+    phase_workers(smi)
+    log(json.dumps({"library_products": quant}))
     kernels = [
         {
             "name": name,

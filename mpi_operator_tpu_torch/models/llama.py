@@ -54,6 +54,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from mpi_operator_tpu_torch.kernels.flash_attention import flash_attention
+from mpi_operator_tpu_torch.kernels.quant_matmul import quant_matmul
 from mpi_operator_tpu_torch.parallel import collectives
 from mpi_operator_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
 from mpi_operator_tpu_torch.parallel.ring_attention import dense_attention, ring_attention
@@ -74,7 +75,7 @@ class Config:
     # "auto" and "flash": the flash kernels (CUDA on the card, their plain
     # versions on the CPU); "dense": the quadratic oracle, small cases only
     attention_impl: str = "auto"
-    # "int8"/"fp8" FFN products are the quant_matmul slice, not ported yet
+    # "int8"/"fp8": the FFN products' forward quantized (kernels/quant_matmul)
     matmul_precision: str = "bf16"
     remat_layers: bool = False
 
@@ -86,11 +87,6 @@ class Config:
         if self.matmul_precision not in ("bf16", "int8", "fp8"):
             raise ValueError(
                 f"matmul_precision={self.matmul_precision!r}; expected bf16|int8|fp8"
-            )
-        if self.matmul_precision != "bf16":
-            raise NotImplementedError(
-                f"matmul_precision={self.matmul_precision!r} needs the quantized "
-                "FFN products (kernels/quant_matmul), which a later slice ports"
             )
 
     @property
@@ -270,9 +266,15 @@ class DecoderLayer(nn.Module):
         wo3 = _local(self.wo).to(dt).unflatten(0, (-1, c.head_dim))
         h = h + reduce_from_tp(torch.einsum("bhtx,hxd->btd", attn, wo3), tp)
         y = copy_to_tp(_rmsnorm(h, self.mlp_norm, c.norm_eps), tp)
-        gate = nn.functional.silu(y @ _local(self.w_gate).to(dt))
-        up = y @ _local(self.w_up).to(dt)
-        return h + reduce_from_tp((gate * up) @ _local(self.w_down).to(dt), tp)
+        # the FFN products: bf16 plain; int8/fp8 with the forward quantized
+        # and the backward at full precision. w_down is row-parallel: its
+        # partial products are summed over ``tensor`` (its scales and
+        # accumulator too, when quantized) inside quant_matmul
+        mp = c.matmul_precision
+        gate = nn.functional.silu(quant_matmul(y, _local(self.w_gate).to(dt), precision=mp))
+        up = quant_matmul(y, _local(self.w_up).to(dt), precision=mp)
+        return h + quant_matmul(gate * up, _local(self.w_down).to(dt), precision=mp,
+                                tp_group=tp)
 
 
 class Llama(nn.Module):
@@ -299,6 +301,31 @@ class Llama(nn.Module):
         if return_features:
             return x
         return (copy_to_tp(x, self.tp_group) @ _local(self.lm_head).to(dt)).float()
+
+    # -- the sharding protocol (parallel/sharding.py) -----------------------
+
+    def logical_axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        return logical_axes(self.config)
+
+    def fsdp_units(self):
+        """FSDP2's units below the root: one per decoder layer."""
+        return list(self.layers)
+
+    def set_parallel(self, mesh) -> None:
+        """Check that ``tensor`` divides the heads, and take the ``tensor``
+        and ``sequence`` process groups."""
+        from mpi_operator_tpu_torch.parallel.sharding import check_head_split
+        from mpi_operator_tpu_torch.runtime.topology import (
+            AXIS_SEQ,
+            AXIS_TENSOR,
+            axis_group,
+            mesh_sizes,
+        )
+
+        c = self.config
+        check_head_split(c.n_heads, c.n_kv_heads, mesh_sizes(mesh).get(AXIS_TENSOR, 1))
+        set_parallel(self, tp_group=axis_group(mesh, AXIS_TENSOR),
+                     seq_group=axis_group(mesh, AXIS_SEQ))
 
     def _embed(self, tokens, table):
         """The rows of ``tokens``. Under ``tensor`` each rank holds a block of

@@ -15,7 +15,10 @@ so that it matches the optax chain the JAX trainer builds, term for term:
   ``warmup_cosine_decay_schedule``; step n uses the schedule at count n.
 
 Parameters, moments and traces are updated in place (JAX returns new
-arrays; in place saves a copy of the whole model per step). The optimizer
+arrays; in place saves a copy of the whole model per step). A stateful
+model (a ResNet) keeps its state as module buffers, which its training
+forward updates in place: JAX's ``model_state`` is ``TrainState.model_state``
+here, and the remat's recompute leaves it as the forward left it. The optimizer
 state is keyed by parameter name, so a checkpoint does not depend on the
 order of the parameters.
 
@@ -76,6 +79,13 @@ class TrainState:
     params: nn.Module
     opt_state: Dict[str, Any]
 
+    @property
+    def model_state(self) -> Dict[str, torch.Tensor]:
+        """The model's buffers (a ResNet's batch-norm running statistics; {}
+        for the Llama), by reference: the JAX ``TrainState.model_state``.
+        The checkpoint's state dict holds them with the parameters."""
+        return dict(self.params.named_buffers())
+
 
 def learning_rate(config: TrainerConfig, count: int) -> float:
     """The learning rate at optimizer count ``count`` (optax's schedules)."""
@@ -134,6 +144,29 @@ def _pmean_flat_(tensors, group) -> None:
         t.copy_(part.view_as(t))
 
 
+def _buffers_kept_on_recompute(fn: Callable) -> Callable:
+    """``fn(model, batch)`` for ``checkpoint``: the backward runs it a second
+    time to recompute the activations, and that run must not update the
+    model's buffers (batch norm's running statistics) again, as JAX's
+    functional remat never does. The buffers are copied before the
+    recompute and put back after it (also when the recompute stops early)."""
+    ran = []
+
+    def run(model, batch):
+        if not ran:
+            ran.append(True)
+            return fn(model, batch)
+        kept = [b.clone() for b in model.buffers()]
+        try:
+            return fn(model, batch)
+        finally:
+            with torch.no_grad():
+                for b, k in zip(model.buffers(), kept):
+                    b.copy_(k)
+
+    return run
+
+
 def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     """optax's ``clip_by_global_norm``, in place: each gradient becomes
     ``g / norm * max_norm`` where ``norm >= max_norm`` and stays as it is
@@ -167,7 +200,8 @@ class Trainer:
             inner = loss_fn
 
             def loss_fn(model, batch):
-                return checkpoint(inner, model, batch, use_reentrant=False)
+                return checkpoint(_buffers_kept_on_recompute(inner), model, batch,
+                                  use_reentrant=False)
 
         self._loss_fn = loss_fn
 
@@ -229,6 +263,14 @@ class Trainer:
         for p in params.values():
             p.grad = None
         state.step += 1
+        return state, metrics
+
+    def multi_step(self, state: TrainState, batch, n: int):
+        """``n`` steps on one batch; returns ``(state, last metrics)`` (the
+        JAX ``multi_step``, there one ``lax.scan`` dispatch: here a loop of
+        eager steps)."""
+        for _ in range(n):
+            state, metrics = self.train_step(state, batch)
         return state, metrics
 
     def _adamw(self, params, grads, opt, count: int, lr: float):

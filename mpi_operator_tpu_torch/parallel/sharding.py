@@ -1,4 +1,4 @@
-"""Logical-axis sharding rules, and the sharding of the Llama model: tensor
+"""Logical-axis sharding rules, and the sharding of a model: tensor
 parallelism on DTensors, then FSDP2.
 
 Port of ``mpi_operator_tpu/parallel/sharding.py``. ``DEFAULT_RULES``,
@@ -28,7 +28,6 @@ from mpi_operator_tpu_torch.runtime.topology import (
     AXIS_FSDP,
     AXIS_SEQ,
     AXIS_TENSOR,
-    axis_group,
     batch_mesh,
     mesh_sizes,
 )
@@ -144,20 +143,24 @@ def _split_over_tensor(model, tp_mesh, dims: Dict[str, int]) -> None:
 
 
 def shard_model(model, mesh, rules: Optional[Rules] = None):
-    """Shard a :class:`~mpi_operator_tpu_torch.models.llama.Llama` over the
-    mesh, in place.
+    """Shard a model over the mesh, in place. The model says how, through
+    three methods: ``logical_axes()`` (parameter name → logical axes),
+    ``set_parallel(mesh)`` (checks the plan and takes the process groups it
+    computes over) and ``fsdp_units()`` (the submodules FSDP2 wraps before
+    the root): the Llama's are its decoder layers, a ResNet's its bottleneck
+    blocks, MNIST's none.
 
     1. ``tensor`` (above 1): each parameter the rules send there becomes a
-       DTensor on the ``tensor`` sub-mesh, ``Shard`` on that dimension
-       (``wq``/``wk``/``wv``/``w_gate``/``w_up`` and ``lm_head`` on dim 1,
-       ``wo``/``w_down`` and ``embed`` on dim 0); the model runs on the
-       local shards and calls the tensor collectives itself.
-    2. FSDP2 over (``data``, ``fsdp``): ``fully_shard`` on each decoder
-       layer, then on the root. ``data`` replicates and ``fsdp`` shards
-       (HSDP when both are above 1), each parameter on its ``fsdp``
-       dimension per the rules (``embed``: dim 0 of ``wq``, dim 1 of
-       ``wo``). Parameters stay whole over ``sequence``, as the rules
-       leave them; the trainer sums their gradients over it.
+       DTensor on the ``tensor`` sub-mesh, ``Shard`` on that dimension (the
+       Llama's ``wq``/``wk``/``wv``/``w_gate``/``w_up`` and ``lm_head`` on
+       dim 1, ``wo``/``w_down`` and ``embed`` on dim 0); the model runs on
+       the local shards and calls the tensor collectives itself.
+    2. FSDP2 over (``data``, ``fsdp``): ``fully_shard`` on each unit, then
+       on the root. ``data`` replicates and ``fsdp`` shards (HSDP when both
+       are above 1), each parameter on its ``fsdp`` dimension per the rules
+       (``embed``: dim 0 of ``wq``, dim 1 of ``wo``; ``conv_out``: dim 0 of
+       an OIHW convolution). Parameters stay whole over ``sequence``, as the
+       rules leave them; the trainer sums their gradients over it.
 
     ``expert`` and ``pipe`` are replica axes of the Llama path, as in the
     JAX package, whose Llama names neither axis: FSDP2 runs on the
@@ -166,26 +169,21 @@ def shard_model(model, mesh, rules: Optional[Rules] = None):
     ``fsdp``, ``tensor``, ``sequence``) coordinate computes the same step
     on the same parameters and nothing is reduced over them.
 
-    A parameter the rules replicate (the norm scales) stays whole on every
-    rank, outside FSDP, and the trainer reduces its gradient. Returns those
-    replicated parameters, in the model's order (every rank must reduce
-    them in one order)."""
+    A parameter the rules replicate (the norm scales, batch norm's scale
+    and bias) stays whole on every rank, outside FSDP, and the trainer
+    reduces its gradient. Returns those replicated parameters, in the
+    model's order (every rank must reduce them in one order)."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
-    from mpi_operator_tpu_torch.models.llama import logical_axes, set_parallel
-
     sizes = mesh_sizes(mesh)
     names = mesh.mesh_dim_names
-    axes = logical_axes(model.config)
-    tp = sizes.get(AXIS_TENSOR, 1)
-    if tp > 1:
-        check_head_split(model.config.n_heads, model.config.n_kv_heads, tp)
+    axes = model.logical_axes()
+    model.set_parallel(mesh)
+    if sizes.get(AXIS_TENSOR, 1) > 1:
         tp_dims = {n: shard_dim(axes[n], names, AXIS_TENSOR, rules) for n in axes}
         _split_over_tensor(model, mesh[AXIS_TENSOR],
                            {n: d for n, d in tp_dims.items() if d is not None})
-    set_parallel(model, tp_group=axis_group(mesh, AXIS_TENSOR),
-                 seq_group=axis_group(mesh, AXIS_SEQ))
     dp_mesh = batch_mesh(mesh)
     dims = {p: fsdp_dim(axes[n], names, rules) for n, p in model.named_parameters()}
     replicated = [p for p in model.parameters() if dims[p] is None]
@@ -193,8 +191,8 @@ def shard_model(model, mesh, rules: Optional[Rules] = None):
     def placement(param):
         return Shard(dims[param])
 
-    for layer in model.layers:
-        fully_shard(layer, mesh=dp_mesh, shard_placement_fn=placement,
-                    ignored_params=set(replicated) & set(layer.parameters()))
+    for unit in model.fsdp_units():
+        fully_shard(unit, mesh=dp_mesh, shard_placement_fn=placement,
+                    ignored_params=set(replicated) & set(unit.parameters()))
     fully_shard(model, mesh=dp_mesh, shard_placement_fn=placement, ignored_params=set(replicated))
     return replicated

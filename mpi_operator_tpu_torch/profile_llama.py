@@ -63,11 +63,12 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def summarize(prof, wall_us: float, steps: int) -> dict:
+def summarize(prof, wall_us: float, steps: int, classify=kernel_class) -> dict:
     """Per step of a profiled window of ``steps`` steps that took ``wall_us``
-    on the host's clock: device time by kernel class, the top kernels, the
-    device's busy time (the union of kernel intervals: the streams overlap)
-    and idle share, and NCCL's share of the summed kernel time."""
+    on the host's clock: device time by kernel class (``classify`` maps a
+    kernel's name to it), the top kernels, the device's busy time (the union
+    of kernel intervals: the streams overlap) and idle share, and NCCL's
+    share of the summed kernel time."""
     kernels = [
         e for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
@@ -75,7 +76,7 @@ def summarize(prof, wall_us: float, steps: int) -> dict:
     by_class, by_name, intervals = defaultdict(float), defaultdict(float), []
     for e in kernels:
         us = e.time_range.elapsed_us()
-        by_class[kernel_class(e.name)] += us
+        by_class[classify(e.name)] += us
         by_name[e.name] += us
         intervals.append((e.time_range.start, e.time_range.end))
     busy = _busy_us(intervals)

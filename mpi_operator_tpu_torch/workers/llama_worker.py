@@ -64,6 +64,7 @@ from mpi_operator_tpu_torch.runtime.topology import (
     mesh_from_context,
     mesh_sizes,
 )
+from mpi_operator_tpu_torch.workers import host
 
 CONFIGS = {
     "tiny": llama.tiny,
@@ -192,27 +193,14 @@ def exit_code(record: dict) -> int:
     return EXIT_RESTART if record["outcome"] == "restart" else 0
 
 
-def _rank_main(local_rank: int, device: str) -> None:
-    sys.exit(exit_code(main(device=device, local_rank=local_rank)))
-
-
-def _combined_exit(codes) -> int:
-    """75 if any rank asked for a restart, else the first non-zero code."""
-    if EXIT_RESTART in codes:
-        return EXIT_RESTART
-    return next((c for c in codes if c), 0)
+def rank_main(local_rank: int, device: Optional[str]) -> int:
+    return exit_code(main(device=device, local_rank=local_rank))
 
 
 def run_host(device: Optional[str] = None) -> int:
     """This host's ranks: one in this process, or ``chips_per_host`` spawned
-    ones. Returns the host's exit code."""
-    ctx = bootstrap.context_from_env()
-    local = max(ctx.chips_per_host, 1) if device == "cpu" else ctx.local_chips()
-    if local <= 1:
-        return exit_code(main(device=device))
-    if ctx.num_hosts == 1 and not ctx.coordinator_address:
-        os.environ[bootstrap.ENV_COORDINATOR] = f"127.0.0.1:{bootstrap.free_port()}"
-    return _combined_exit(bootstrap.run_local_ranks(_rank_main, local, (device,)))
+    ones (workers/host.py). Returns the host's exit code."""
+    return host.run_host(rank_main, device)
 
 
 if __name__ == "__main__":

@@ -93,8 +93,13 @@ def test_init_matches_jax_shapes_and_scales():
 
 
 def test_quantized_ffn_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="quant_matmul"):
-        tllama.Config(matmul_precision="int8")
+    """The quantized FFN is ported now (kernels/quant_matmul; its parity
+    tests are tests/test_torch_quant_matmul.py): int8 and fp8 configs build,
+    and an unknown precision is refused as the JAX config refuses it."""
+    for precision in ("int8", "fp8"):
+        assert tllama.Config(matmul_precision=precision).matmul_precision == precision
+    with pytest.raises(ValueError, match="matmul_precision"):
+        tllama.Config(matmul_precision="int4")
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

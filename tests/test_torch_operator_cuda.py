@@ -1,5 +1,7 @@
-"""The operator path driving the port's worker on a CUDA card: the twin of
-``tests_tpu/test_operator_on_tpu.py``.
+"""The operator path driving the port's workers on a CUDA card: the twin of
+``tests_tpu/test_operator_on_tpu.py``, and the image and collective-verb
+manifests (``examples/resnet.yaml``, ``mnist.yaml``, ``mnist_allreduce.yaml``,
+``pi.yaml``) at one replica with the port's workers on the card.
 
 ``examples/llama.yaml``, changed in memory only (as tests/test_torch_e2e.py
 does): one replica, the port's worker with no ``--device`` (so CUDA), no
@@ -47,3 +49,27 @@ def test_llama_job_trains_on_a_cuda_card():
     assert report["backend"] == "cuda"
     assert all(report["kernel_launches"][k] > 0
                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("manifest, module, args, want", [
+    ("resnet.yaml", "resnet_worker", (), "images_per_sec"),
+    ("mnist.yaml", "mnist_worker", ("20",), "mnist: loss"),
+    ("mnist_allreduce.yaml", "mnist_allreduce_worker", (), "mnist_allreduce"),
+    ("pi.yaml", "pi_worker", ("50000",), "pi is approximately 3.1"),
+])
+def test_image_and_verb_jobs_run_on_a_cuda_card(manifest, module, args, want):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the worker runs on it, with no CPU fallback")
+    job = load_job(os.path.join(REPO, "examples", manifest))
+    job.metadata.name = f"{job.metadata.name}-cuda"
+    job.spec.worker.replicas = 1
+    job.spec.worker.template.container.args = []
+    job.spec.worker.template.container.command = [
+        "python", "-m", f"mpi_operator_tpu_torch.workers.{module}", *args]
+    final, logs = run_job(job, timeout=300, workdir=REPO)
+    out, err = logs[f"default/{job.metadata.name}-worker-0"]
+    assert is_succeeded(final.status), (final.status.conditions, err[-3000:])
+    assert want in out
+    if out.strip().splitlines()[-1].startswith("{"):
+        assert json.loads(out.strip().splitlines()[-1]).get("backend") == "cuda"

@@ -63,7 +63,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert len(sources) >= 10
     scanned = {os.path.relpath(p, os.path.join(REPO, "mpi_operator_tpu_torch")) for p in sources}
     assert {"ops/profiling.py", "runtime/compile_cache.py", "parallel/moe.py",
-            "parallel/pipeline.py"} <= scanned
+            "parallel/pipeline.py", "kernels/quant_matmul.py", "models/resnet.py",
+            "models/mnist.py", "models/__init__.py", "ops/data.py", "entry.py",
+            "workers/host.py", "workers/resnet_worker.py", "workers/mnist_worker.py",
+            "workers/mnist_allreduce_worker.py", "workers/pi_worker.py",
+            "profile_resnet.py"} <= scanned
     bad = [
         f"{os.path.relpath(p, REPO)}: {m}"
         for p in sources for m in _imported_modules(p) if _forbidden(m)
@@ -104,6 +108,49 @@ def test_bench_and_worker_refuse_to_run_without_cuda(no_cuda):
         llama_worker.main(environ={"LLAMA_STEPS": "1"})
     with pytest.raises(RuntimeError, match="does not run on the CPU"):
         bench.bench_llama(device="cpu")
+    for run in (bench.bench_resnet, bench.bench_llama_longctx):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()
+    with pytest.raises(RuntimeError, match="does not run on the CPU"):
+        bench.bench_resnet(device="cpu")
+    from mpi_operator_tpu_torch import entry
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry.entry()
+
+
+def test_bench_main_takes_the_jax_benchs_modes(monkeypatch):
+    """``BENCH_MODEL`` picks llama | llama-long | resnet | all (the JAX bench's
+    order, ResNet last); the control plane's mode is not offered."""
+    ran = []
+    for name in ("bench_llama", "bench_llama_longctx", "bench_resnet"):
+        monkeypatch.setattr(bench, name, lambda name=name: ran.append(name))
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    for mode, want in (("llama", ["bench_llama"]), ("resnet", ["bench_resnet"]),
+                       ("llama-long", ["bench_llama_longctx"]),
+                       ("all", ["bench_llama", "bench_llama_longctx", "bench_resnet"])):
+        ran.clear()
+        monkeypatch.setenv("BENCH_MODEL", mode)
+        bench.main()
+        assert ran == want, mode
+    monkeypatch.setenv("BENCH_MODEL", "controlplane")
+    with pytest.raises(SystemExit, match="unknown BENCH_MODEL"):
+        bench.main()
+
+
+def test_entry_is_the_jax_entrys_model_on_the_cpu_when_asked():
+    import __graft_entry__
+
+    from mpi_operator_tpu_torch import entry
+
+    fn, (model, tokens) = entry.entry(device="cpu")
+    jfn, (params, jtokens) = __graft_entry__.entry()
+    assert tuple(tokens.shape) == jtokens.shape and model.config.head_dim == 32
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        np.size(x) for x in __import__("jax").tree.leaves(params))
+    with torch.no_grad():
+        logits = fn(model, tokens)
+    assert logits.shape == (2, 128, 2048) and bool(torch.isfinite(logits).all())
 
 
 def test_bench_module_exits_nonzero_without_cuda():

@@ -130,3 +130,55 @@ def test_clip_matches_optax_below_and_above_the_norm():
 def test_unknown_optimizer_raises():
     with pytest.raises(ValueError, match="unknown optimizer"):
         Trainer(lambda m, b: 0.0, TrainerConfig(optimizer="lamb"))
+
+
+def test_multi_step_matches_single_steps():
+    """Twin of tests/test_trainer.py's: ``multi_step(n)`` is step for step
+    the same as n ``train_step`` calls on one batch (MNIST, AdamW)."""
+    from mpi_operator_tpu_torch.models import mnist
+
+    cfg = mnist.Config()
+    batch = {"image": torch.zeros(8, 28, 28, 1), "label": torch.arange(8) % 10}
+
+    def make():
+        t = Trainer(mnist.loss_fn, TrainerConfig(learning_rate=1e-2))
+        return t, t.init_state(mnist.init(cfg, torch.Generator().manual_seed(0), "cpu"))
+
+    t1, s1 = make()
+    for _ in range(3):
+        s1, m1 = t1.train_step(s1, batch)
+    t2, s2 = make()
+    s2, m2 = t2.multi_step(s2, batch, 3)
+    assert s2.step == 3
+    np.testing.assert_allclose(m1["loss"].item(), m2["loss"].item(), rtol=1e-6)
+    for (n, a), b in zip(s1.params.named_parameters(), s2.params.parameters()):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), atol=1e-6, err_msg=n)
+
+
+def test_remat_updates_the_batch_norm_statistics_once():
+    """With ``remat`` the backward runs the ResNet's forward again; the
+    running statistics must move once per step, as without the remat (and
+    as JAX's functional remat moves them), and the step be the same."""
+    from mpi_operator_tpu_torch.models import resnet
+
+    cfg = resnet.Config(depth="resnet26", width=8, image_size=32, num_classes=10,
+                        compute_dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    batch = {"image": torch.from_numpy(rng.standard_normal((4, 32, 32, 3)).astype(np.float32)),
+             "label": torch.arange(4)}
+    runs = {}
+    for remat in (False, True):
+        trainer = Trainer(resnet.loss_fn, TrainerConfig(learning_rate=1e-3, optimizer="momentum",
+                                                        grad_clip_norm=0.0, remat=remat))
+        state = trainer.init_state(resnet.init(cfg, torch.Generator().manual_seed(0), "cpu"))
+        state, m = trainer.train_step(state, batch)
+        runs[remat] = (m["loss"].item(), {n: b.clone() for n, b in state.model_state.items()},
+                       {n: p.detach().clone() for n, p in state.params.named_parameters()})
+    (loss, stats, params), (loss_r, stats_r, params_r) = runs[False], runs[True]
+    assert loss == loss_r
+    # one update from (0, 1): mean = 0.1·batch mean, var = 0.9 + 0.1·batch var
+    assert all(torch.equal(stats[n], stats_r[n]) for n in stats)
+    assert float(stats["stem_bn.var"].min()) > 0.9 and not torch.equal(
+        stats["stem_bn.mean"], torch.zeros_like(stats["stem_bn.mean"]))
+    for n in params:
+        torch.testing.assert_close(params_r[n], params[n], rtol=1e-6, atol=1e-7)
