@@ -1,0 +1,17 @@
+"""Device milliseconds in the input phase of the port's train step that no
+device operation of any stream covers, meaned over the phase's stretches
+between the port's device marks (``benchmark/marks.py``):
+each step's ``end`` to the next step's ``fwd`` (n traced steps have
+n - 1): the loop, the batch's copy (``data.batch``) and whatever the host
+does before the forward's first launch.
+Where no mark is lost, the four ``idle_ms.*.fsdp`` tile the idle between
+a rank's first mark and its last; the line holds the worst rank's.
+Nothing on one card."""
+
+from benchmark import marks
+
+
+def read(run):
+    if run.chips < 2:
+        return None
+    return marks.idle_ms(run.trace, "input")

@@ -44,7 +44,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 
 # one entry per CUDA source; later slices add theirs here
-SOURCES = {"flash_attention": "flash_attention.cu"}
+SOURCES = {"flash_attention": "flash_attention.cu", "span_mark": "span_mark.cu"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -26,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 from mpi_operator_tpu_torch.runtime import bootstrap
+from mpi_operator_tpu_torch.runtime.stepstats import span
 from mpi_operator_tpu_torch.runtime.topology import AXIS_DATA, AXIS_FSDP, AXIS_SEQ, mesh_sizes
 
 
@@ -128,7 +129,16 @@ def make_global_batch(
     columns [s·T/N, (s+1)·T/N), and the batch gains that block's
     next-token ``targets`` and ``valid`` mask: the targets roll over the
     whole T, so the last column of block s predicts the first token of
-    block s + 1, and only the last global position is invalid."""
+    block s + 1, and only the last global position is invalid.
+
+    During a capture on the calling thread, the call is the span
+    ``data.batch`` (runtime/stepstats.py); :func:`prefetch`'s producer
+    thread records none."""
+    with span("data.batch"):
+        return _global_batch(host_local, device, mesh, non_blocking)
+
+
+def _global_batch(host_local, device, mesh, non_blocking):
     def to_device(arr):
         return _to_device(arr, device, non_blocking)
 
@@ -203,6 +213,8 @@ def prefetch(
     device transform run on a side stream; the producer records an event
     after them, and the consumer's current stream waits on it and takes
     the batch's tensors over (``record_stream``) before it is yielded.
+    During a capture on the consumer's thread, each wait for the next
+    batch is the span ``data.wait`` (runtime/stepstats.py).
 
     An exception in the producer is re-raised in the consumer. A consumer
     that abandons the generator early (elastic restart, exception,
@@ -258,7 +270,8 @@ def prefetch(
     t.start()
     try:
         while True:
-            item = q.get()  # the producer always delivers `done` or its exception
+            with span("data.wait"):
+                item = q.get()  # the producer always delivers `done` or its exception
             if item is done:
                 return
             if isinstance(item, BaseException):

@@ -57,6 +57,8 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial
 from torch.utils.checkpoint import checkpoint
 
+from mpi_operator_tpu_torch.runtime.stepstats import device_mark, load_device_marks, span
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
@@ -196,6 +198,7 @@ class Trainer:
         self._replicated = []
         self._seq_group = None  # the class docstring says what it reduces
         self._loss_scale = 1  # the sequence size
+        self._mark_device = None  # a CUDA device takes device marks (init_state)
         if config.remat:
             inner = loss_fn
 
@@ -218,6 +221,9 @@ class Trainer:
             if self._seq_group is not None:
                 self._loss_scale = dist.get_world_size(self._seq_group)
         params = dict(model.named_parameters())
+        if params:
+            device = _local(next(iter(params.values()))).device
+            self._mark_device = device if load_device_marks(device) else None
 
         def zeros(dtype=None):
             return {n: torch.zeros_like(p, dtype=dtype) for n, p in params.items()}
@@ -233,35 +239,51 @@ class Trainer:
 
     def train_step(self, state: TrainState, batch):
         """One step. Returns ``(state, metrics)``; metrics hold device
-        tensors (``loss``, and ``grad_norm`` when clipping), unsynchronised."""
+        tensors (``loss``, and ``grad_norm`` when clipping), unsynchronised.
+
+        The step is the span ``trainer.step``, holding ``trainer.forward``,
+        ``trainer.backward`` and ``trainer.optimizer`` (the all-reduces, then
+        ``trainer.clip`` and ``trainer.update``). During a capture on a CUDA
+        device it also launches four device marks in stream order: ``fwd``
+        before the forward, ``bwd`` before the backward, ``opt`` after the
+        backward and ``end`` after the update (runtime/stepstats.py)."""
         c = self.config
         model = state.params
         params = dict(model.named_parameters())
-        for p in params.values():
-            p.grad = None
-        loss = self._loss_fn(model, batch) * self._loss_scale
-        loss.backward()
-        metrics = {"loss": loss.detach()}
-        with torch.no_grad():
-            if self.mesh is not None:
-                metrics["loss"] = _pmean_(metrics["loss"].clone())
-                if self._seq_group is not None:
-                    replicated = set(self._replicated)
-                    _pmean_flat_([_local(p.grad) for p in params.values() if p not in replicated],
-                                 self._seq_group)
-                for p in self._replicated:
-                    _pmean_(p.grad)
-            grads = {n: p.grad for n, p in params.items()}
-            if c.grad_clip_norm > 0:
-                metrics["grad_norm"] = clip_by_global_norm_(list(grads.values()),
-                                                            c.grad_clip_norm)
-            lr = learning_rate(c, state.step)
-            if c.optimizer == "adamw":
-                self._adamw(params, grads, state.opt_state, state.step + 1, lr)
-            else:
-                self._sgd(params, grads, state.opt_state, lr)
-        for p in params.values():
-            p.grad = None
+        with span("trainer.step"):
+            for p in params.values():
+                p.grad = None
+            device_mark(self._mark_device, "fwd")
+            with span("trainer.forward"):
+                loss = self._loss_fn(model, batch) * self._loss_scale
+            device_mark(self._mark_device, "bwd")
+            with span("trainer.backward"):
+                loss.backward()
+            device_mark(self._mark_device, "opt")
+            metrics = {"loss": loss.detach()}
+            with span("trainer.optimizer"), torch.no_grad():
+                if self.mesh is not None:
+                    metrics["loss"] = _pmean_(metrics["loss"].clone())
+                    if self._seq_group is not None:
+                        replicated = set(self._replicated)
+                        _pmean_flat_([_local(p.grad) for p in params.values()
+                                      if p not in replicated], self._seq_group)
+                    for p in self._replicated:
+                        _pmean_(p.grad)
+                grads = {n: p.grad for n, p in params.items()}
+                if c.grad_clip_norm > 0:
+                    with span("trainer.clip"):
+                        metrics["grad_norm"] = clip_by_global_norm_(list(grads.values()),
+                                                                    c.grad_clip_norm)
+                lr = learning_rate(c, state.step)
+                with span("trainer.update"):
+                    if c.optimizer == "adamw":
+                        self._adamw(params, grads, state.opt_state, state.step + 1, lr)
+                    else:
+                        self._sgd(params, grads, state.opt_state, lr)
+                for p in params.values():
+                    p.grad = None
+            device_mark(self._mark_device, "end")
         state.step += 1
         return state, metrics
 

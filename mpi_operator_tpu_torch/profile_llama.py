@@ -1,26 +1,23 @@
-"""Where the time of one Llama train step goes on the card.
+"""Where the time of a gang's Llama train steps goes, rank by rank.
 
-Runs the step ``mpi_operator_tpu_torch.bench`` times (``bench_single_chip()``,
-AdamW with a bf16 first moment, seq 2048, batch 4 unless BENCH_SEQ and
-BENCH_BATCH say otherwise) under ``torch.profiler`` for a few steps after
-warm-up, and prints one JSON line: device time per step by kernel class
-(the three flash kernels, matrix products, NCCL's collectives, everything
-else), the top kernels by device time, the top host operations by their
-own CPU time, and the device's busy and idle share of the profiled window.
-
-``--gang N --out DIR`` reads a gang instead: the worker
+``--gang N --out DIR`` reads a gang: the worker
 (``workers/llama_worker.main``, the operator's entry point, configured by
 the ``LLAMA_*`` environment) on N local ranks, one per card. Each rank
 times its steps after the first 2 on the host's clock (synchronised at
 both ends) and on its card (a CUDA event per step boundary), profiles its
-last 2 steps, and writes ``rank<N>.json`` to DIR; the command prints one
-JSON line with every rank's.
+last 2 steps (device time by kernel class: the three flash kernels, matrix
+products, NCCL's collectives, everything else; the top kernels, the top
+host operations, the device's busy and idle share), and writes
+``rank<N>.json`` to DIR; the command prints one JSON line with every
+rank's. It reads the ``tensor`` and ``sequence`` meshes that no benchmark
+cell has; one card's step, and the gang's FSDP cell, are read by the
+benchmark's traced runs (``python3 -m benchmark.run --workload <cell>
+--seed 0 --seconds 10 --trace 1``).
 
-    python -m mpi_operator_tpu_torch.profile_llama
     LLAMA_CONFIG=bench LLAMA_MESH=sequence=4 LLAMA_SEQ=16384 LLAMA_BATCH=1 LLAMA_STEPS=14 \
         python -m mpi_operator_tpu_torch.profile_llama --gang 4 --out DIR
 
-Needs CUDA cards (``--gang`` takes ``--device cpu`` for gloo ranks).
+Needs CUDA cards (``--device cpu`` for gloo ranks).
 """
 
 from __future__ import annotations
@@ -35,8 +32,6 @@ from typing import Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile
-
-from mpi_operator_tpu_torch import bench
 
 
 def kernel_class(name: str) -> str:
@@ -106,31 +101,6 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-
-
-def main(steps: int = 3, warmup: int = 2) -> dict:
-    seq_len = int(os.environ.get("BENCH_SEQ", "2048"))
-    batch = int(os.environ.get("BENCH_BATCH", "4"))
-    _, trainer, state, tokens, _ = bench.llama_setup(batch, seq_len, device="cuda")
-    for _ in range(warmup):
-        state, metrics = trainer.train_step(state, tokens)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            state, metrics = trainer.train_step(state, tokens)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    record = {
-        "device": torch.cuda.get_device_name(0),
-        "card": card(),
-        "seq_len": seq_len,
-        "batch": batch,
-        "loss": float(metrics["loss"]),
-        **summarize(prof, wall_us, steps),
-    }
-    print(json.dumps(record), flush=True)
-    return record
 
 
 WARM, PROFILED = 2, 2  # a gang rank's untimed first steps, and its profiled last ones
@@ -227,12 +197,9 @@ def gang(ranks: int, environ: dict, out_dir: str, device: Optional[str] = None,
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--gang", type=int, default=0, help="ranks of the worker to read")
-    ap.add_argument("--out", default="", help="the gang's per-rank records go here")
+    ap.add_argument("--gang", type=int, required=True, help="ranks of the worker to read")
+    ap.add_argument("--out", required=True, help="the gang's per-rank records go here")
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None)
     a = ap.parse_args()
-    if a.gang:
-        env = {k: v for k, v in os.environ.items() if k.startswith("LLAMA_")}
-        print(json.dumps(gang(a.gang, env, a.out, a.device)), flush=True)
-    else:
-        main()
+    env = {k: v for k, v in os.environ.items() if k.startswith("LLAMA_")}
+    print(json.dumps(gang(a.gang, env, a.out, a.device)), flush=True)

@@ -21,17 +21,35 @@ its phases:
 With the persistent kernel cache on (``runtime/compile_cache.py``), the
 blob carries its ``compile_cache`` hits and misses, as the JAX package's
 does.
+
+The port's spans live here too. :func:`span` names a stretch of host code
+(``loop.<bucket>`` for each phase above, ``trainer.*`` in
+``ops/trainer.py``, ``data.*`` in ``ops/data.py``); with no
+``torch.profiler`` capture running on the calling thread it costs one
+check. During a capture (the benchmark's ``--trace 1``,
+``TPUJOB_PROFILE_DIR``, ``ctl profile``) it is an event of the capture's
+host timeline, on the kernels' clock, and its host seconds add up in
+:func:`span_totals`.
+:func:`device_mark` is a span's device side: the port's own kernel
+``tpujob_span_mark_<point>`` (``kernels/csrc/span_mark.cu``), launched on
+the current stream during a capture, so the device trace shows when the
+stream reached that point of the step.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import json
 import logging
 import os
 import time
 from typing import Any, Dict, Optional
+
+import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
 
 log = logging.getLogger("tpujob.stepstats")
 
@@ -89,6 +107,108 @@ def bounded_train_stats(step=0, steps=0, step_p50_ms=0.0, buckets=None,
     return out
 
 
+_NULL_SPAN = contextlib.nullcontext()
+# span name -> [host seconds, count]; only the capturing thread writes it
+_span_totals: Dict[str, list] = {}
+
+
+class _Span:
+    """A span opened during a capture: an event of the capture's host
+    timeline, and its host seconds added to :func:`span_totals` when it
+    closes."""
+
+    __slots__ = ("name", "_rf", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        # an operator-scope event, not record_function's user annotation: the
+        # profiler copies a user annotation onto the device timeline as a
+        # span over its kernels, where every reader of device operations
+        # (busy time, kernel classes) would count it as one
+        self._rf = _RecordFunctionFast(self.name)
+        self._rf.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._t0
+        self._rf.__exit__(*exc)
+        total = _span_totals.setdefault(self.name, [0.0, 0])
+        total[0] += dt
+        total[1] += 1
+        return False
+
+
+def span(name: str):
+    """A span named ``name``, for a ``with`` block. With no
+    ``torch.profiler`` capture running on the calling thread (the profiler
+    records only the thread that started it), one check returns a shared
+    null context: nothing is allocated, recorded or launched. During a
+    capture the block is an event of the capture's host timeline, on the
+    kernels' clock, and its host seconds add to ``span_totals()[name]``."""
+    if not _profiler_enabled():
+        return _NULL_SPAN
+    return _Span(name)
+
+
+def span_totals() -> Dict[str, Dict[str, float]]:
+    """Each span name's host ``seconds`` and ``count`` over the captures
+    since :func:`reset_span_totals` (spans outside a capture count
+    nothing)."""
+    return {name: {"seconds": s, "count": n} for name, (s, n) in _span_totals.items()}
+
+
+def reset_span_totals() -> None:
+    _span_totals.clear()
+
+
+MARK_KERNEL = "tpujob_span_mark"  # the marks' kernels: MARK_KERNEL + "_" + point
+MARK_POINTS = ("fwd", "bwd", "opt", "end")
+_mark_lib: Optional[ctypes.CDLL] = None
+
+
+def load_device_marks(device) -> bool:
+    """Build (at its first use in a build directory) and load the mark
+    kernels when ``device`` is a CUDA device: set-up's work, so that no
+    capture builds them. Returns whether ``device`` takes marks: not off
+    CUDA, nor where the kernels do not build (no ``nvcc``), which is
+    logged; training goes on without marks."""
+    global _mark_lib
+    if torch.device(device).type != "cuda":
+        return False
+    if _mark_lib is None:
+        from mpi_operator_tpu_torch.kernels import _build
+
+        try:
+            lib = _build.library("span_mark")
+        except (RuntimeError, OSError):
+            log.warning("device marks off: the mark kernels did not build or load",
+                        exc_info=True)
+            return False
+        lib.tpujob_span_mark_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.tpujob_span_mark_launch.restype = ctypes.c_int
+        lib.tpujob_span_mark_error_string.argtypes = [ctypes.c_int]
+        lib.tpujob_span_mark_error_string.restype = ctypes.c_char_p
+        _mark_lib = lib
+    return True
+
+
+def device_mark(device, point: str) -> None:
+    """During a capture on the calling thread, launch the mark of ``point``
+    (one of :data:`MARK_POINTS`: ``tpujob_span_mark_<point>``) on
+    ``device``'s current stream; nothing otherwise, nor for a ``device`` of
+    None (one that :func:`load_device_marks` refused)."""
+    if device is None or not _profiler_enabled():
+        return
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = _mark_lib.tpujob_span_mark_launch(MARK_POINTS.index(point), stream)
+    if rc:
+        msg = _mark_lib.tpujob_span_mark_error_string(rc).decode()
+        raise RuntimeError(f"{MARK_KERNEL}_{point}: CUDA launch failed ({rc}: {msg})")
+
+
 class StepStatsRecorder:
     """Accumulates per-step bucket attribution inside a training loop::
 
@@ -138,15 +258,17 @@ class StepStatsRecorder:
     def phase(self, bucket: str):
         """Attribute the enclosed wall time to ``bucket``. The FIRST
         ``compute`` phase lands in ``compile`` instead: the first step's
-        wall time is build + warm-up + run."""
+        wall time is build + warm-up + run. The phase is the span
+        ``loop.<bucket>``, named by the bucket its time lands in."""
+        if bucket == "compute" and not self._compiled:
+            self._compiled = True
+            bucket = "compile"
         t0 = self._clock()
         try:
-            yield
+            with span("loop." + bucket):
+                yield
         finally:
             dt = self._clock() - t0
-            if bucket == "compute" and not self._compiled:
-                self._compiled = True
-                bucket = "compile"
             self._buckets[bucket] = self._buckets.get(bucket, 0.0) + dt
 
     def step_done(self, step: Optional[int] = None) -> None:

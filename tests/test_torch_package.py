@@ -66,8 +66,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "parallel/pipeline.py", "kernels/quant_matmul.py", "models/resnet.py",
             "models/mnist.py", "models/__init__.py", "ops/data.py", "entry.py",
             "workers/host.py", "workers/resnet_worker.py", "workers/mnist_worker.py",
-            "workers/mnist_allreduce_worker.py", "workers/pi_worker.py",
-            "profile_resnet.py"} <= scanned
+            "workers/mnist_allreduce_worker.py", "workers/pi_worker.py"} <= scanned
     bad = [
         f"{os.path.relpath(p, REPO)}: {m}"
         for p in sources for m in _imported_modules(p) if _forbidden(m)
