@@ -7,27 +7,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: the hand-written kernels from ``mpi_operator_tpu_torch/kernels/csrc``
    with nvcc, one process per source, all at once;
-3. kernels: K1 (forward), K2 (dq) and K3 (dk/dv), then the autograd path,
-   each against its plain PyTorch version on the same inputs, bf16, causal
-   and not, at the JAX bench's gate shape, the Llama model's shape and a
-   ragged T. Ceilings: o 3e-2 abs, lse 1e-3 abs, dq/dk/dv 3e-2 x max|ref|;
+3. kernels: K1 (forward) and the backward (K3: dk/dv and dq's f32 sum by
+   reduce-adds, then the dq pass), then the autograd path, each against its
+   plain PyTorch version on the same inputs, bf16, causal and not, at the
+   JAX bench's gate shape, the Llama model's shape and a ragged T. Ceilings: o 3e-2 abs, lse 1e-3 abs, dq/dk/dv 3e-2 x max|ref|;
    beside them every row (a query of o/dq, a key of dk/dv) is held to
    TOL_ROW relative to its own RMS, so late causal keys and queries, whose
    values are far below the tensor's max, are held too. At the model shape
    the smoke also shows that this check rejects a result whose last quarter
-   of T is zero. Then each kernel, its plain version and PyTorch's
+   of T is zero. The backward is also held, one launch over the whole
+   tensor, at the two one-card decoder cells' attention shapes (B 1, T
+   32768, H 32, Hkv 8, D 128 and B 8, T 4096, same heads) against the plain
+   version run one q head at a time, with the same ceilings and per-row
+   bound. Then K1, the backward, K3 alone, the dq pass alone, the zero
+   fill, their plain versions and PyTorch's
    ``scaled_dot_product_attention`` (the yardstick, never on the port's
-   path) timed with CUDA events at the model shape, with each kernel's
-   TFLOP/s and share of its bound; SDPA's backward alone (dq, dk and dv in
-   one call) is the yardstick of the K2 + K3 pair;
+   path) timed with CUDA events at the model shape and at the long-context
+   cell's (no plain version timed there), with TFLOP/s and share of the
+   bound (the backward's and K3's: 5 products); SDPA's backward alone (dq,
+   dk and dv in one call) is the backward's yardstick;
 4. reference: a small Llama (head_dim 64; phase 9 runs tiny() at 16) on the
    card against the same weights on the CPU, where the plain versions run:
    loss and gradient norm agree;
 5. main path: ``bench_single_chip()`` (~0.79B params) at seq 2048, batch 4,
    AdamW, through the benchmark entry point ``bench.bench_llama`` (its K1
    check, then 2 warm-up and 5 timed steps). Every loss is finite, the
-   first and last are the recorded ones (10.9078 and 0.1252 to the printed digits: the
-   batch is fixed), and each kernel launches once per layer per step (84
+   first is the recorded one (10.907811, within 1e-6: the batch is fixed) and
+   the last within 1e-3 of 0.12508 (dq's sum order parts runs: nine read
+   0.124855-0.125303), and each kernel launches once per layer per step (84
    in 7 steps): the per-layer remat saves K1's outputs instead of running
    K1 again;
 6. gang path: the worker as the operator runs it
@@ -37,7 +44,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    parameters around the kernels): (a) 4 steps, no checkpoint; (b) elastic,
    a hostfile of 2 hosts: saves at step 2 and exits 75; (c) the same
    checkpoint dir, a hostfile of 1 host: restores step 2, runs to 4 and
-   exits 0. (b)'s and (c)'s losses equal (a)'s within 1e-6 relative; their
+   exits 0. (b)'s and (c)'s losses equal (a)'s within 1e-6 relative at step
+   0, before any backward, and within 5e-3 after (dq's reduce-adds run in no
+   fixed order, so runs part by up to 9.8e-4 within 4 steps); their
    step-stats blobs have compute and ckpt seconds; the checkpoint's bytes,
    save and restore times are printed. The checkpoint (~9.5 GB) goes to a
    temporary directory in ``$TMPDIR`` or the checkout, whichever has more
@@ -48,17 +57,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ranks on one card, so the transport is left out), at
    ``bench_single_chip``'s heads (H 16, Hkv 4, D 128), B 1, T 16384 in 4
    blocks of 4096: K1 per non-future block (causal on the diagonal, full on
-   older blocks), K2 and K3 per block with the merged lse. The merged o and
-   lse and the summed dq, dk, dv are held against K1–K3's plain versions
-   over the whole T (the backward one kv head at a time), with phase 3's
-   ceilings and per-row bound, and so are K1–K3 launched once over the
-   whole T; each kernel launches n(n+1)/2 = 10 times in the fold. The
+   older blocks), the backward per block with the merged lse. The merged o
+   and lse and the summed dq, dk, dv are held against the plain versions
+   over the whole T (the backward one q head at a time), with phase 3's
+   ceilings and per-row bound, and so are the kernels launched once over
+   the whole T; each kernel launches n(n+1)/2 = 10 times in the fold. The
    fold's time, and each kernel's 10 launches
    alone, are timed beside the same work as one launch over the whole T:
    the causal (q, k) pairs are the same, so the ratios are what splitting
    T costs (the merges and f32 sums, and grids a quarter the size).
 
-8. small head dims: K1–K3 at D 16 and 32 (the D-64 tiles, columns past D
+8. small head dims: K1 and the backward at D 16 and 32 (the D-64 tiles, columns past D
    zero-filled by TMA, only D columns stored) against their plain
    versions with phase 3's ceilings and per-row bound, causal and full, at
    the worker's ``tiny`` shape (B 2, T 128, H 4, Hkv 2) and at B 4, T 2048,
@@ -92,7 +101,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
 14. the Llama bench at ``BENCH_QUANT=int8`` and ``fp8`` (``bench_llama``,
    batch 4, seq 2048, 1 warm-up and 3 timed steps each): finite losses whose
    first is within 5 % of the bf16 run's first (phase 5's, the same weights
-   and batch), 12 launches of each of K1–K3 a step, and 6 quantized products
+   and batch), 12 launches of K1, K3 and the dq pass each a step, and 6 quantized products
    per layer a step (3 forward, 3 in the remat's recompute);
 15. ResNet: resnet26 at image 64 on the card against the CPU from the same
    weights (loss 1e-2 relative, grad norm 5e-2, as phase 4 holds the Llama);
@@ -110,8 +119,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 The line before the last is a JSON object with one entry per kernel (its
 registers and spill bytes per head dim from ptxas, from phase 7 its
 launches as ``ring_launches`` and the fold-vs-whole times as ``ring_ms`` /
-``ring_whole_ms``, and from phase 8 its times at D 16 and 32 as
-``small_d``, beside its numbers); the last is
+``ring_whole_ms``, from phase 3 its times (and the backward's errors) at
+the long-context shape as ``long``, and from phase 8 its times at D 16 and 32 as ``small_d``,
+beside its numbers); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -135,17 +145,30 @@ BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak, same source
 CU_SOURCE = "mpi_operator_tpu_torch/kernels/csrc/flash_attention.cu"
 REPLACES = {
     "flash_fwd": "mpi_operator_tpu/kernels/flash_attention.py:172",
+    # the dq call's emit: scale * acc, rounded
     "flash_bwd_dq": "mpi_operator_tpu/kernels/flash_attention.py:347",
-    "flash_bwd_dkv": "mpi_operator_tpu/kernels/flash_attention.py:370",
+    # K3: the products of both backward calls, S and dP computed once
+    "flash_bwd_dkv": "mpi_operator_tpu/kernels/flash_attention.py:347+370",
 }
-CUDA_KERNEL = {  # wrapper -> its __global__ function in CU_SOURCE
+CUDA_KERNEL = {  # launch count -> its __global__ function in CU_SOURCE
     "flash_fwd": "flash_fwd_kernel",
     "flash_bwd_dq": "flash_bwd_dq_kernel",
     "flash_bwd_dkv": "flash_bwd_dkv_kernel",
 }
-# the main path's first and last losses as recorded in PERF.md, to the printed digits
-MAIN_FIRST_LOSS, MAIN_LAST_LOSS = 10.9078, 0.1252
+# The main path's first and last losses as recorded in PERF.md, and how far each may
+# move. The first precedes any backward and repeats to the printed digits. After a
+# backward, losses part from run to run: K3 adds dq's f32 sum up in no fixed order, a
+# bf16 rounding of dq can flip, and AdamW's first steps carry the flip into the
+# weights. Nine runs' last losses lie within 2.3e-4 of 0.12508; the bound is 1e-3.
+MAIN_FIRST_LOSS, MAIN_FIRST_TOL = 10.907811, 1e-6
+MAIN_LAST_LOSS, MAIN_LAST_TOL = 0.12508, 1e-3
+# The gang's restart and resume against its reference, relative: exact before any
+# backward; after one, the same parting. Losses of steps 1-3 of nine sound runs lie
+# within 9.8e-4 of each other.
+GANG_FIRST_REL, GANG_LOSS_REL = 1e-6, 5e-3
 MODEL_SHAPE = (4, 2048, 16, 4, 128)  # B, T, H, Hkv, D of bench_single_chip at seq 2048
+LONG_SHAPE = (1, 32768, 32, 8, 128)  # the benchmark's mistral-7b-l8.s32768 attention
+S4096_SHAPE = (8, 4096, 32, 8, 128)  # the benchmark's mistral-7b-l8.s4096 attention
 SHAPES = [
     ("gate", (2, 512, 8, 4, 64)),
     ("model", MODEL_SHAPE),
@@ -198,7 +221,8 @@ def phase_device() -> str:
 
 def phase_build() -> dict:
     """Build every library; returns, per wrapper, ptxas's registers and
-    spill bytes (stores + loads) of its kernel at each head dim."""
+    spill bytes (stores + loads) of its kernel at each head dim (the dq
+    pass has one instance for all)."""
     from mpi_operator_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -212,7 +236,7 @@ def phase_build() -> dict:
     for wrapper, kernel in CUDA_KERNEL.items():
         regs, spills = {}, {}
         for d in HEAD_DIMS:
-            r = res.get(f"{kernel}<{d}>")
+            r = res.get(f"{kernel}<{d}>", res.get(kernel))
             if r is None:
                 fail(f"ptxas reported nothing for {kernel}<{d}>")
             regs[str(d)] = r["registers"]
@@ -273,8 +297,9 @@ def _check_has_power(name: str, ref) -> None:
 
 
 def _check_shape(label: str, shape, causal: bool, seed: int, power: bool = False) -> dict:
-    """K1, K2, K3 and the autograd path at one shape against the plain
-    versions; returns each kernel's worst max abs error. ``power``: also
+    """K1, the backward and the autograd path at one shape against the plain
+    versions; returns each kernel's worst max abs error (the backward's dq
+    under the dq pass). ``power``: also
     show that the per-row check rejects a zeroed last quarter of T."""
     from mpi_operator_tpu_torch.kernels import flash_attention as fa
 
@@ -292,13 +317,10 @@ def _check_shape(label: str, shape, causal: bool, seed: int, power: bool = False
             fail(f"K1 lse {tag} disagrees with its plain version: {e_lse}")
         delta = (do.float() * o_ref.float()).sum(-1)
         args = (q, k, v, do, lse_ref, delta, causal, scale)
-        dq_ref = fa.flash_bwd_dq_plain(*args)
-        dq = fa.flash_bwd_dq_cuda(*args)
+        dq_ref, dk_ref, dv_ref = fa.flash_bwd_plain(*args)
+        dq, dk, dv = fa.flash_bwd_cuda(*args)
         torch.cuda.synchronize()
-        e_dq = _check(f"K2 dq {tag}", dq, dq_ref, _grad_bound(dq_ref))
-        dk_ref, dv_ref = fa.flash_bwd_dkv_plain(*args)
-        dk, dv = fa.flash_bwd_dkv_cuda(*args)
-        torch.cuda.synchronize()
+        e_dq = _check(f"K3 + dq pass dq {tag}", dq, dq_ref, _grad_bound(dq_ref))
         e_dk = _check(f"K3 dk {tag}", dk, dk_ref, _grad_bound(dk_ref))
         e_dv = _check(f"K3 dv {tag}", dv, dv_ref, _grad_bound(dv_ref))
         if power:
@@ -357,9 +379,13 @@ def _bound(shape, n_matmuls: int, in_bytes: int, out_bytes: int):
     return bytes_ms, "bytes", flops
 
 
-def phase_timing(smi: str, shape=MODEL_SHAPE) -> dict:
-    """Times (ms) of each kernel, its plain version and the SDPA yardstick at
-    ``shape`` (the model shape by default), causal."""
+def phase_timing(smi: str, shape=MODEL_SHAPE, plain: bool = True) -> dict:
+    """Times (ms) at ``shape`` (the model shape by default), causal, of K1;
+    of the backward (launch count ``flash_bwd_dkv``: its accumulator's zero
+    fill, K3 and the dq pass), with ``k3_ms`` K3 alone (adding into one
+    accumulator allocated once) and ``fill_ms`` the fill alone; of the dq
+    pass alone (``flash_bwd_dq``); of their plain versions (with ``plain``)
+    and of the SDPA yardstick."""
     from mpi_operator_tpu_torch.kernels import flash_attention as fa
 
     b, t, h, h_kv, d = shape
@@ -368,6 +394,7 @@ def phase_timing(smi: str, shape=MODEL_SHAPE) -> dict:
     with torch.no_grad():
         o, lse = fa.flash_fwd_cuda(q, k, v, True, scale)
         delta = (do.float() * o.float()).sum(-1)
+        acc = torch.randn(b, h, t, d, device="cuda")
     args = (q, k, v, do, lse, delta, True, scale)
     n_q, n_kv = q.numel() * 2, k.numel() * 2  # bf16 bytes
     n_row = b * h * t * 4  # one f32 per (b, h, t)
@@ -384,37 +411,44 @@ def phase_timing(smi: str, shape=MODEL_SHAPE) -> dict:
                 _bound(shape, 2, n_q + 2 * n_kv, n_q + n_row), sdpa_fwd,
             ),
             "flash_bwd_dq": (
-                lambda: fa.flash_bwd_dq_cuda(*args),
-                lambda: fa.flash_bwd_dq_plain(*args),
-                _bound(shape, 3, 2 * n_q + 2 * n_kv + 2 * n_row, n_q), None,
+                lambda: fa.flash_bwd_dq_cuda(acc, scale),
+                lambda: (acc * scale).to(torch.bfloat16),
+                _bound(shape, 0, 2 * n_q, n_q), None,
             ),
             "flash_bwd_dkv": (
-                lambda: fa.flash_bwd_dkv_cuda(*args),
-                lambda: fa.flash_bwd_dkv_plain(*args),
-                _bound(shape, 4, 2 * n_q + 2 * n_kv + 2 * n_row, 2 * n_kv), None,
+                lambda: fa.flash_bwd_cuda(*args),
+                lambda: fa.flash_bwd_plain(*args),
+                _bound(shape, 5, 2 * n_q + 2 * n_kv + 2 * n_row, n_q + 2 * n_kv), None,
             ),
         }
-        for name, (kernel, plain, (bound_ms, bound_by, flops), lib_ms) in specs.items():
+        for name, (kernel, plain_fn, (bound_ms, bound_by, flops), lib_ms) in specs.items():
             ms = _time_ms(kernel)
-            plain_ms = _time_ms(plain, reps=2)
+            plain_ms = _time_ms(plain_fn, reps=2) if plain else None
             tflops = flops / (ms * 1e-3) / 1e12
             out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=lib_ms, tflops=tflops, bound_share=bound_ms / ms)
             log(f"[timing] {name} {shape} causal: kernel {ms:.4f} ms "
                 f"({tflops:.1f} TFLOP/s, {100 * bound_ms / ms:.1f} % of bound), plain "
-                f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), sdpa "
-                f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} [{smi}]")
+                f"{'n/a' if plain_ms is None else f'{plain_ms:.3f} ms'}, bound {bound_ms:.4f} ms "
+                f"({bound_by}), sdpa {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} [{smi}]")
+        fill_ms = _time_ms(lambda: torch.zeros(b, h, t, d, dtype=torch.float32, device="cuda"))
+        # K3 alone: adding into a non-zero accumulator costs what adding into zeros does
+        k3_ms = _time_ms(lambda: fa.flash_bwd_dkv_cuda(*args[:6], acc, True, scale))
+    del acc
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k_x, v_x))
     # SDPA's backward alone: its forward runs once, outside the timed window
     o_sdpa = sdpa(qg, kg, vg, is_causal=True, scale=scale)
     sdpa_bwd = _time_ms(lambda: torch.autograd.grad(o_sdpa, (qg, kg, vg), do, retain_graph=True))
     del o_sdpa
-    dq_ms, dkv_ms = out["flash_bwd_dq"]["ms"], out["flash_bwd_dkv"]["ms"]
+    bwd_ms, dq_ms = out["flash_bwd_dkv"]["ms"], out["flash_bwd_dq"]["ms"]
+    out["flash_bwd_dkv"].update(k3_ms=k3_ms, fill_ms=fill_ms,
+                                k3_bound_share=out["flash_bwd_dkv"]["bound_ms"] / k3_ms)
     for name in out:
         out[name]["sdpa_bwd_ms"] = sdpa_bwd
-    log(f"[timing] bwd {shape} causal: K2 + K3 {dq_ms + dkv_ms:.4f} ms (K2 {dq_ms:.4f}, "
-        f"K3 {dkv_ms:.4f}), sdpa backward alone {sdpa_bwd:.4f} ms (dq, dk, dv of the MHA "
-        f"form) [{smi}]")
+    log(f"[timing] bwd {shape} causal: {bwd_ms:.4f} ms; each alone: K3 {k3_ms:.4f} "
+        f"({100 * out['flash_bwd_dkv']['k3_bound_share']:.1f} % of the 5-product bound), dq "
+        f"pass {dq_ms:.4f}, zero fill {fill_ms:.4f} (sum {k3_ms + dq_ms + fill_ms:.4f}); "
+        f"sdpa backward alone {sdpa_bwd:.4f} ms (dq, dk, dv of the MHA form) [{smi}]")
 
     def sdpa_fwd_bwd():
         o_ = sdpa(qg, kg, vg, is_causal=True, scale=scale)
@@ -428,7 +462,67 @@ def phase_timing(smi: str, shape=MODEL_SHAPE) -> dict:
 
     log(f"[timing] fwd+bwd {shape} causal: port {_time_ms(flash_fwd_bwd):.3f} ms, "
         f"sdpa {_time_ms(sdpa_fwd_bwd):.3f} ms, sdpa fwd {sdpa_fwd:.3f} ms [{smi}]")
+    del q, k, v, do, qg, kg, vg, qf, kf, vf, k_x, v_x
+    torch.cuda.empty_cache()
     return out
+
+
+def _plain_bwd_by_head(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """``flash_bwd_plain``'s arithmetic one q head at a time, since over a
+    whole kv head it holds [g, T, T] f32 scores (4.3 GB a q head at T
+    32768): dq per head, dk and dv summed over each kv head's q-head group
+    in f32, then rounded as the plain version rounds them."""
+    from mpi_operator_tpu_torch.kernels import flash_attention as fa
+
+    h, h_kv = q.shape[1], k.shape[1]
+    g = h // h_kv
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, device=k.device)
+    dv = torch.zeros(v.shape, device=v.device)
+    for i in range(h):
+        j, hs, ks = i // g, slice(i, i + 1), slice(i // g, i // g + 1)
+        p, ds = fa._bwd_probs(q[:, hs], k[:, ks], v[:, ks], do[:, hs], lse[:, hs],
+                              delta[:, hs], causal, scale)
+        ds = ds.to(k.dtype).float()[:, 0, 0]  # [B, T, T], rounded as each product's operand
+        dq[:, i] = (torch.bmm(ds, k[:, j].float()) * scale).to(q.dtype)
+        dk[:, j] += torch.bmm(ds.transpose(1, 2), q[:, i].float()) * scale
+        del ds
+        dv[:, j] += torch.bmm(p.to(do.dtype).float()[:, 0, 0].transpose(1, 2), do[:, i].float())
+        del p
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def phase_long(smi: str) -> dict:
+    """The backward (K3 and the dq pass, one launch over the whole tensor)
+    at the two one-card decoder cells' attention shapes, causal, against
+    ``_plain_bwd_by_head`` with phase 3's ceilings and per-row bound: at T
+    32768 256 k tiles add into a late dq row. lse and delta come from K1,
+    the same inputs on both sides. Returns each backward kernel's worst max
+    abs error over both shapes."""
+    from mpi_operator_tpu_torch.kernels import flash_attention as fa
+
+    errs = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for label, shape in (("s32768", LONG_SHAPE), ("s4096", S4096_SHAPE)):
+        torch.cuda.empty_cache()
+        q, k, v, do = _inputs(shape, seed=31)
+        scale = shape[4] ** -0.5
+        tag = f"{label} causal {shape}"
+        with torch.no_grad():
+            o, lse = fa.flash_fwd_cuda(q, k, v, True, scale)
+            delta = (do.float() * o.float()).sum(-1)
+            args = (q, k, v, do, lse, delta, True, scale)
+            got = fa.flash_bwd_cuda(*args)
+            t0 = time.perf_counter()
+            refs = _plain_bwd_by_head(*args)
+            torch.cuda.synchronize()
+            log(f"[long] plain backward by q head {tag}: {time.perf_counter() - t0:.1f} s")
+            for name, gt, r in zip(("dq", "dk", "dv"), got, refs):
+                e = _check(f"K3 + dq pass {name} {tag}", gt, r, _grad_bound(r))
+                key = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"
+                errs[key] = max(errs[key], e)
+        del q, k, v, do, o, lse, delta, args, got, refs
+    torch.cuda.empty_cache()
+    return errs
 
 
 def phase_reference() -> None:
@@ -488,8 +582,10 @@ def phase_main(smi: str) -> tuple:
         fail(f"expected {warmup + steps} losses, got {len(losses)}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite loss on the main path: {losses}")
-    if round(losses[0], 4) != MAIN_FIRST_LOSS or round(losses[-1], 4) != MAIN_LAST_LOSS:
-        fail(f"the losses moved from {MAIN_FIRST_LOSS} -> {MAIN_LAST_LOSS}: {losses}")
+    if not (abs(losses[0] - MAIN_FIRST_LOSS) <= MAIN_FIRST_TOL
+            and abs(losses[-1] - MAIN_LAST_LOSS) <= MAIN_LAST_TOL):
+        fail(f"the losses moved from {MAIN_FIRST_LOSS} -> {MAIN_LAST_LOSS} by more than "
+             f"{MAIN_FIRST_TOL} / {MAIN_LAST_TOL}: {losses}")
     want = 12 * (warmup + steps)  # bench_single_chip's 12 layers, once per step each
     if launches != {name: want for name in REPLACES}:
         fail(f"expected {want} launches of each kernel on the main path, got {launches}")
@@ -573,14 +669,16 @@ def phase_gang(smi: str) -> dict:
             fail(f"expected a restart at step 2 and a resume from 2 to 4: {b}, {c}")
         steps = os.path.join(tmp, "ckpt", "2")
         size = _tree_bytes(steps)
-        rel = max(abs(x - y) / abs(y) for x, y in zip(b["losses"] + c["losses"], ref["losses"]))
+        rels = [abs(x - y) / abs(y) for x, y in zip(b["losses"] + c["losses"], ref["losses"])]
+        first, rel = rels[0], max(rels[1:])
         log(f"[gang] losses: reference {ref['losses']}, restart {b['losses']}, resume "
-            f"{c['losses']}; largest relative difference {rel:.3e} (bound 1e-6)")
+            f"{c['losses']}; relative difference before any backward {first:.3e} (bound "
+            f"{GANG_FIRST_REL:.0e}), largest after {rel:.3e} (bound {GANG_LOSS_REL:.0e})")
         log(f"[gang] checkpoint of step 2: {size} bytes; save_s {b_buckets['ckpt']:.3f} "
             f"(the ckpt seconds of run (b): its periodic save and the commit before exit 75), "
             f"restore_s {c['restore_s']:.3f} [{smi}]")
-        if not rel <= 1e-6:
-            fail(f"the restarted run's losses differ from the reference's: {rel}")
+        if not (first <= GANG_FIRST_REL and rel <= GANG_LOSS_REL):
+            fail(f"the restarted run's losses differ from the reference's: {first}, {rel}")
         per_step = {k: n / 4 for k, n in ref["kernel_launches"].items()}
         log(f"[gang] kernel launches per step: reference {per_step}, restart "
             f"{b['kernel_launches']} in 2 steps, resume {c['kernel_launches']} in 2 steps")
@@ -592,24 +690,15 @@ def phase_gang(smi: str) -> dict:
 
 
 def _plain_whole(q, k, v, do, scale: float):
-    """(o, lse, dq, dk, dv) of K1–K3's plain versions over the whole T,
+    """(o, lse, dq, dk, dv) of the plain versions over the whole T,
     causal: the forward in one call (it walks the kernel's tiles), the
-    backward one kv head (and its group of q heads) at a time, since it
-    holds [g, T, T] f32 scores (4.3 GB per kv head at T 16384)."""
+    backward one q head at a time (``_plain_bwd_by_head``)."""
     from mpi_operator_tpu_torch.kernels import flash_attention as fa
     from mpi_operator_tpu_torch.parallel import ring_attention as ra
 
     o, lse = fa.flash_fwd_plain(q, k, v, True, scale)
     delta = ra.attention_delta(do, o)
-    g = q.shape[1] // k.shape[1]
-    grads = []
-    for j in range(k.shape[1]):
-        hs = slice(j * g, (j + 1) * g)
-        args = (q[:, hs], k[:, j:j + 1], v[:, j:j + 1], do[:, hs], lse[:, hs], delta[:, hs],
-                True, scale)
-        grads.append((fa.flash_bwd_dq_plain(*args), *fa.flash_bwd_dkv_plain(*args)))
-        torch.cuda.empty_cache()
-    return (o, lse, *(torch.cat(x, dim=1) for x in zip(*grads)))
+    return (o, lse, *_plain_bwd_by_head(q, k, v, do, lse, delta, True, scale))
 
 
 def phase_ring(smi: str) -> dict:
@@ -626,8 +715,7 @@ def phase_ring(smi: str) -> dict:
     def whole():
         o, lse = fa.flash_fwd_cuda(q, k, v, True, scale)
         delta = ra.attention_delta(do, o)
-        dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, True, scale)
-        return (o, lse, dq, *fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True, scale))
+        return (o, lse, *fa.flash_bwd_cuda(q, k, v, do, lse, delta, True, scale))
 
     def fold():
         return ra.fold_every_rank(q, k, v, do, RING_N, causal=True, scale=scale)
@@ -671,14 +759,17 @@ def phase_ring(smi: str) -> dict:
                     kernel(qs[i], ks[j], vs[j], *grads, how, scale)
             return run
 
+        # the dq pass alone, over each visit's accumulator and over the whole T's
+        accs = [torch.zeros(qs[i].shape, device="cuda") for i, _, _ in visits]
+        acc = torch.zeros(q.shape, device="cuda")
         bwd = (do, lse, delta)
         per_kernel = {
             "flash_fwd": (per_block(fa.flash_fwd_cuda),
                           lambda: fa.flash_fwd_cuda(q, k, v, True, scale)),
-            "flash_bwd_dq": (per_block(fa.flash_bwd_dq_cuda, True),
-                             lambda: fa.flash_bwd_dq_cuda(q, k, v, *bwd, True, scale)),
-            "flash_bwd_dkv": (per_block(fa.flash_bwd_dkv_cuda, True),
-                              lambda: fa.flash_bwd_dkv_cuda(q, k, v, *bwd, True, scale)),
+            "flash_bwd_dq": (lambda: [fa.flash_bwd_dq_cuda(a, scale) for a in accs],
+                             lambda: fa.flash_bwd_dq_cuda(acc, scale)),
+            "flash_bwd_dkv": (per_block(fa.flash_bwd_cuda, True),
+                              lambda: fa.flash_bwd_cuda(q, k, v, *bwd, True, scale)),
         }
         times = {name: {"ring_ms": _time_ms(f, reps=5), "ring_whole_ms": _time_ms(w, reps=5)}
                  for name, (f, w) in per_kernel.items()}
@@ -687,14 +778,14 @@ def phase_ring(smi: str) -> dict:
         log(f"[timing] ring {name} {tag}: {want} launches in the fold {tm['ring_ms']:.3f} ms, "
             f"one over the whole T {tm['ring_whole_ms']:.3f} ms, ratio "
             f"{tm['ring_ms'] / tm['ring_whole_ms']:.3f} [{smi}]")
-    log(f"[timing] ring {tag}: fold of every rank (K1 x{want}, K2 x{want}, K3 x{want}, merges) "
-        f"{fold_ms:.3f} ms, K1 + K2 + K3 over the whole T {whole_ms:.3f} ms, ratio "
-        f"{fold_ms / whole_ms:.3f} [{smi}]")
+    log(f"[timing] ring {tag}: fold of every rank (K1 x{want}, K3 and the dq pass x{want}, "
+        f"merges) {fold_ms:.3f} ms, K1, K3 and the dq pass over the whole T {whole_ms:.3f} ms, "
+        f"ratio {fold_ms / whole_ms:.3f} [{smi}]")
     return {"launches": launches, "times": times, "fold_ms": fold_ms, "whole_ms": whole_ms}
 
 
 def phase_small_d(smi: str) -> dict:
-    """Phase 8: K1–K3 at D 16 and 32 against the plain versions at the
+    """Phase 8: K1 and the backward at D 16 and 32 against the plain versions at the
     worker's tiny shape and at B 4, T 2048, H 16, Hkv 4, where each kernel,
     its plain version and SDPA are timed. Returns, per kernel and D, the
     times and the worst max abs error."""
@@ -1017,6 +1108,8 @@ def main() -> None:
     resources = phase_build()
     errs = phase_kernels()
     times = phase_timing(smi)
+    long_errs = phase_long(smi)
+    long_times = phase_timing(smi, LONG_SHAPE, plain=False)
     phase_reference()
     launches, bf16_first_loss = phase_main(smi)
     phase_gang(smi)
@@ -1042,6 +1135,8 @@ def main() -> None:
             **ring["times"][name],
             "max_abs_err": errs[name],
             **times[name],
+            "long": {**long_times[name], **({"max_abs_err": long_errs[name]}
+                                             if name in long_errs else {})},
             **resources[name],
             "small_d": small_d[name],
         }

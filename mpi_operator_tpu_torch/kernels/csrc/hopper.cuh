@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks for the port's kernels, in plain inline PTX:
-// mbarriers, TMA tile loads, the wgmma shared-memory descriptor, the wgmma
+// mbarriers, TMA tile loads and reduce-adds, bulk groups, the async-proxy
+// fence, named barriers, the wgmma shared-memory descriptor, the wgmma
 // fence/commit/wait and the m64nNk16 bf16 -> f32 products for N = 64 and 128.
 // No PyTorch and no CUTLASS headers, so a source that includes this builds in
 // seconds. Host side: 128B-swizzled TMA descriptors, encoded by libcuda's
@@ -85,6 +86,46 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operand reads, TMA stores and reductions); a barrier
+// after it orders them for the other threads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier `id` (1..15; 0 is __syncthreads') over `count` threads
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// TMA: add a shared-memory box elementwise into the global tensor of a
+// tensor map (an f32 add for an f32 map); elements past the tensor's
+// extents are dropped. Completion is tracked by this thread's bulk groups.
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+      "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups are pending; `.read`:
+// only until their shared-memory sources have been read
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // wgmma shared-memory matrix descriptor for a 128B-swizzled operand:
 // start address, leading and stride byte offsets (16-byte units), layout 1 = B128.
 // K-major (K contiguous): `sbo` = 1024 (next 8 rows), `lbo` unused (16).
@@ -151,19 +192,21 @@ __device__ __forceinline__ void acc_to_a(const float (&acc)[R], uint32_t (&a)[R 
 template <int N> struct Wgmma;
 
 template <> struct Wgmma<64> {
-  // D[64 x 64] (+)= A . B, A and B in shared memory (both K-major)
+  // D[64 x 64] (+)= A . B, A and B in shared memory, K-major unless
+  // TRANS_A / TRANS_B = 1 reads A M-major / B N-major
+  template <int TRANS_A = 0, int TRANS_B = 0>
   __device__ static __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(acc));
+        : "l"(a), "l"(b), "r"(acc), "n"(TRANS_A), "n"(TRANS_B));
   }
   // D[64 x 64] (+)= A . B, A in registers (four bf16x2 per thread), B in shared memory;
   // TRANS_B = 1 reads B MN-major (N contiguous)
@@ -252,22 +295,35 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// [n, t, d] bf16, contiguous, read in boxes of [rows, 64] with the 128-byte
-// swizzle; rows past t (and heads past n) are zero-filled, never the next head's,
-// and so are the columns past d when d is under 64 (16 or 32: a box wider than
-// the tensor's inner extent, whose rows are d * 2 bytes apart)
-inline cudaError_t tmap_rows_bf16(CUtensorMap* map, const void* base, int n, int t, int d,
-                                  int rows) {
+// [n, t, d] contiguous, in boxes of [rows, 128 bytes] with the 128-byte
+// swizzle; rows past t (and heads past n) are zero-filled on a load and
+// dropped on a store or reduction, never the next head's, and so are the
+// columns past d when a box is wider than d
+inline cudaError_t tmap_rows(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                             const void* base, int n, int t, int d, int rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)n};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * elem_bytes, (cuuint64_t)t * d * elem_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// bf16 [n, t, d] in boxes of [rows, 64]; d 16 or 32 gives a box wider than
+// the tensor's inner extent, whose rows are d * 2 bytes apart
+inline cudaError_t tmap_rows_bf16(CUtensorMap* map, const void* base, int n, int t, int d,
+                                  int rows) {
+  return tmap_rows(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, n, t, d, rows);
+}
+
+// f32 [n, t, d] in boxes of [rows, 32]
+inline cudaError_t tmap_rows_f32(CUtensorMap* map, const void* base, int n, int t, int d,
+                                 int rows) {
+  return tmap_rows(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, n, t, d, rows);
 }
 
 }  // namespace hopper

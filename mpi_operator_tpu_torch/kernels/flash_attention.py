@@ -2,19 +2,22 @@
 kernels for Hopper, each beside its plain PyTorch version.
 
 Port of ``mpi_operator_tpu/kernels/flash_attention.py``. The three Pallas
-TPU kernels become three CUDA kernels in ``csrc/flash_attention.cu``:
+TPU kernels become CUDA kernels in ``csrc/flash_attention.cu``:
 
 - K1 ``flash_fwd``: online-softmax attention → (o, lse), replacing
   ``_fwd_kernel``;
-- K2 ``flash_bwd_dq``: dq with P recomputed from lse, replacing
-  ``_bwd_dq_kernel``;
-- K3 ``flash_bwd_dkv``: dk/dv summed over each kv head's q-head group,
-  replacing ``_bwd_dkv_kernel`` and its wrapper's group sum.
+- the backward ``flash_bwd``, replacing ``_bwd_dq_kernel`` and
+  ``_bwd_dkv_kernel``: K3 (``flash_bwd_dkv_kernel``) recomputes P and dS
+  once per tile pair, sums dk/dv over each kv head's q-head group in
+  registers and adds each pair's dq share into an f32 accumulator by TMA
+  reduce-adds; the dq pass (``flash_bwd_dq_kernel``) scales and rounds
+  that sum. The order of the reduce-adds is not fixed, so dq's f32 sum
+  can round differently from run to run; dk and dv are fixed.
 
-Each kernel is a ``torch.library`` operator (``flash_fwd_op``,
-``flash_bwd_dq_op``, ``flash_bwd_dkv_op``), dispatched by the device of
-the tensors: a CUDA tensor always goes to the kernel (bf16 only; anything
-the kernel does not take raises), a CPU tensor to the plain version. There
+The forward and the backward are ``torch.library`` operators
+(``flash_fwd_op``, ``flash_bwd_op``), dispatched by the device of the
+tensors: a CUDA tensor always goes to the kernels (bf16 only; anything
+the kernels do not take raises), a CPU tensor to the plain version. There
 is no fallback from one to the other.
 
 Layout: [B, H, T, D] heads-major, k/v at Hkv heads (GQA: q head h reads kv
@@ -40,9 +43,8 @@ _NEG_INF = -1e30
 # K1: a CTA takes 128 q rows (two warpgroups of 64) and walks k tiles of 128.
 # The plain K1 walks the same tiles by default: the per-row online softmax
 # depends only on the k tiling, so it is then the kernel's exact arithmetic.
-# (K2's 128 q rows x 64 k rows and K3's 128 k rows x 64 q rows have no knob:
-# their plain versions are untiled, and the sums differ from the kernels' in f32
-# order only.)
+# (K3's 128 k rows x 64 q rows have no knob: the backward's plain version is
+# untiled, and its sums differ from the kernels' in f32 order only.)
 BLOCK_Q = 128
 BLOCK_K = 128
 # Head dims the kernels are compiled at. D 16 and 32 run in the D-64 tiles:
@@ -51,7 +53,8 @@ HEAD_DIMS = (16, 32, 64, 128)
 PROBE_DIMS = (64, 128)  # N and D of the wgmma layout probe
 
 # Launches per kernel, counted by each wrapper right after its kernel was
-# accepted by the device; ``reset_launches`` zeroes them.
+# accepted by the device (``flash_bwd_dq``: the dq pass; ``flash_bwd_dkv``:
+# K3); ``reset_launches`` zeroes them.
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
@@ -131,7 +134,7 @@ def flash_fwd_plain(
 
 def _bwd_probs(q, k, v, do, lse, delta, causal: bool, scale: float):
     """P (f32) and dS = P ⊙ (dO·Vᵀ − delta) (f32, not yet rounded), both
-    [B,Hkv,g,Tq,Tk] — what K2 and K3 recompute blockwise."""
+    [B,Hkv,g,Tq,Tk] — what K3 recomputes blockwise."""
     b, h, t, d = q.shape
     h_kv = k.shape[1]
     g = h // h_kv
@@ -147,26 +150,22 @@ def _bwd_probs(q, k, v, do, lse, delta, causal: bool, scale: float):
     return p, ds
 
 
-def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """K2's plain version: dq = scale · Σ_k bf16(dS)·K, f32 accumulation."""
-    b, h, t, d = q.shape
-    _, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
-    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds.to(k.dtype).float(), k.float())
-    return (dq * scale).reshape(b, h, t, d).to(q.dtype)
-
-
-def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """K3's plain version: dv = Σ bf16(P)ᵀ·dO and dk = scale · Σ bf16(dS)ᵀ·Q,
-    summed over q positions and the kv head's q-head group in f32."""
+def flash_bwd_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """The backward's plain version → (dq, dk, dv): dq = scale · Σ_k
+    bf16(dS)·K, dv = Σ bf16(P)ᵀ·dO and dk = scale · Σ bf16(dS)ᵀ·Q, the last
+    two summed over q positions and the kv head's q-head group, all in f32."""
     b, h, t, d = q.shape
     h_kv = k.shape[1]
     g = h // h_kv
     p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
     q5 = q.reshape(b, h_kv, g, t, d).float()
     do5 = do.reshape(b, h_kv, g, t, d).float()
+    ds_k = ds.to(k.dtype).float()  # dS rounded as each product's operand
+    ds_q = ds_k if q.dtype == k.dtype else ds.to(q.dtype).float()
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds_k, k.float()) * scale
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p.to(do.dtype).float(), do5)
-    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds.to(q.dtype).float(), q5) * scale
-    return dk.to(k.dtype), dv.to(v.dtype)
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds_q, q5) * scale
+    return dq.reshape(b, h, t, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -178,8 +177,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "flash_fwd_bf16": [_P] * 5 + [_I] * 6 + [_F, _P],
-    "flash_bwd_dq_bf16": [_P] * 7 + [_I] * 6 + [_F, _P],
-    "flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "flash_bwd_dkv_bf16": [_P] * 9 + [_I] * 6 + [_F, _P],
+    "flash_bwd_dq_bf16": [_P, _P, ctypes.c_longlong, _F, _P],
     "wgmma_probe_bf16": [_P] * 5 + [_I] * 2 + [_P],
 }
 
@@ -274,30 +273,30 @@ def _bwd_operands(q, k, v, do, lse, delta):
     )
 
 
-def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """Launch K2. Returns dq [B,H,T,D] bf16."""
-    (b, h, h_kv, t, d), ops = _bwd_operands(q, k, v, do, lse, delta)
-    dq = torch.empty_like(ops[0])
-    lib = _lib()
-    with torch.cuda.device(dq.device):
-        rc = lib.flash_bwd_dq_bf16(
-            *(x.data_ptr() for x in ops), dq.data_ptr(),
-            b, h, h_kv, t, d, int(causal), float(scale), _stream(dq.device),
-        )
-    _check_rc(lib, rc, "flash_bwd_dq")
-    launches["flash_bwd_dq"] += 1
-    return dq
+def flash_bwd_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """Launch K3, then the dq pass. Returns (dq [B,H,T,D], dk, dv
+    [B,Hkv,T,D]), bf16. K3 adds dq's f32 sum into a zeroed [B,H,T,D]
+    accumulator, which lives until the pass has read it."""
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dq_acc, causal, scale)
+    return flash_bwd_dq_cuda(dq_acc, scale), dk, dv
 
 
-def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """Launch K3. Returns (dk, dv) [B,Hkv,T,D] bf16."""
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dq_acc, causal: bool, scale: float):
+    """Launch K3 alone: returns (dk, dv) [B,Hkv,T,D] bf16 and adds dq's
+    unscaled f32 sum into ``dq_acc`` (f32 [B,H,T,D] on the card)."""
     (b, h, h_kv, t, d), ops = _bwd_operands(q, k, v, do, lse, delta)
+    if (dq_acc.dtype != torch.float32 or tuple(dq_acc.shape) != (b, h, t, d)
+            or dq_acc.device != ops[0].device or not dq_acc.is_contiguous()
+            or dq_acc.data_ptr() % 16):
+        raise ValueError(f"dq_acc must be a contiguous, 16-byte aligned f32 {(b, h, t, d)} "
+                         f"on {ops[0].device}, got {dq_acc.dtype} {tuple(dq_acc.shape)}")
     dk = torch.empty_like(ops[1])
     dv = torch.empty_like(ops[2])
     lib = _lib()
     with torch.cuda.device(dk.device):
         rc = lib.flash_bwd_dkv_bf16(
-            *(x.data_ptr() for x in ops), dk.data_ptr(), dv.data_ptr(),
+            *(x.data_ptr() for x in ops), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, h, h_kv, t, d, int(causal), float(scale), _stream(dk.device),
         )
     _check_rc(lib, rc, "flash_bwd_dkv")
@@ -305,8 +304,26 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
     return dk, dv
 
 
+def flash_bwd_dq_cuda(dq_acc, scale: float):
+    """Launch the dq pass: bf16(scale · dq_acc) for an f32 CUDA tensor whose
+    last dimension is a head dim of ``HEAD_DIMS``."""
+    if dq_acc.dtype != torch.float32 or dq_acc.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"the dq pass takes f32 [..., D] with D in {HEAD_DIMS}, got "
+                         f"{dq_acc.dtype} {tuple(dq_acc.shape)}")
+    dq_acc = _operand(dq_acc, "dq_acc", dq_acc.shape)
+    dq = torch.empty(dq_acc.shape, dtype=torch.bfloat16, device=dq_acc.device)
+    lib = _lib()
+    with torch.cuda.device(dq.device):
+        rc = lib.flash_bwd_dq_bf16(
+            dq_acc.data_ptr(), dq.data_ptr(), dq_acc.numel(), float(scale), _stream(dq.device),
+        )
+    _check_rc(lib, rc, "flash_bwd_dq")
+    launches["flash_bwd_dq"] += 1
+    return dq
+
+
 def wgmma_probe_cuda(a, b, v):
-    """The wgmma operand paths K1–K3 are built from, on their own: S = A·Bᵀ
+    """The wgmma operand paths K1 and K3 are built from, on their own: S = A·Bᵀ
     (both K-major from TMA tiles) and O = bf16(S)·V (S the register A operand
     in place, V read MN-major), both f32. a [64, D], b and v [N, D] bf16 on the
     card, N and D in ``PROBE_DIMS``. For the card tests; counts no launch."""
@@ -331,11 +348,11 @@ def wgmma_probe_cuda(a, b, v):
 
 
 # ---------------------------------------------------------------------------
-# the three kernels as operators, dispatched by device
+# the forward and the backward as operators, dispatched by device
 # ---------------------------------------------------------------------------
 #
-# Each kernel is a ``torch.library`` operator: the CUDA kernel for CUDA
-# tensors, the plain version for CPU tensors, a fake for shapes. An operator
+# Each is a ``torch.library`` operator: the CUDA kernels for CUDA tensors,
+# the plain version for CPU tensors, a fake for shapes. An operator
 # is what the dispatcher sees (meta shapes, dispatch modes such as selective
 # checkpointing); a ctypes launch inside an autograd Function is not. The
 # launch counts stay in the CUDA wrappers above. A dispatch through
@@ -373,37 +390,21 @@ _BWD_ARGS = ("(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, Tensor delta
 
 
 @torch.library.custom_op(
-    f"{OPS_NAMESPACE}::flash_bwd_dq", mutates_args=(), device_types="cpu",
-    schema=f"{_BWD_ARGS} -> Tensor",
+    f"{OPS_NAMESPACE}::flash_bwd", mutates_args=(), device_types="cpu",
+    schema=f"{_BWD_ARGS} -> (Tensor, Tensor, Tensor)",
 )
-def flash_bwd_dq_op(q, k, v, do, lse, delta, causal, scale):
-    """K2 → dq; on CPU tensors its plain version."""
-    return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
+def flash_bwd_op(q, k, v, do, lse, delta, causal, scale):
+    """The backward → (dq, dk, dv): K3 and the dq pass; on CPU tensors the
+    plain version."""
+    return flash_bwd_plain(q, k, v, do, lse, delta, causal, scale)
 
 
-flash_bwd_dq_op.register_kernel("cuda")(flash_bwd_dq_cuda)
+flash_bwd_op.register_kernel("cuda")(flash_bwd_cuda)
 
 
-@flash_bwd_dq_op.register_fake
-def _flash_bwd_dq_fake(q, k, v, do, lse, delta, causal, scale):
-    return torch.empty_like(q)
-
-
-@torch.library.custom_op(
-    f"{OPS_NAMESPACE}::flash_bwd_dkv", mutates_args=(), device_types="cpu",
-    schema=f"{_BWD_ARGS} -> (Tensor, Tensor)",
-)
-def flash_bwd_dkv_op(q, k, v, do, lse, delta, causal, scale):
-    """K3 → (dk, dv); on CPU tensors its plain version."""
-    return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)
-
-
-flash_bwd_dkv_op.register_kernel("cuda")(flash_bwd_dkv_cuda)
-
-
-@flash_bwd_dkv_op.register_fake
-def _flash_bwd_dkv_fake(q, k, v, do, lse, delta, causal, scale):
-    return torch.empty_like(k), torch.empty_like(v)
+@flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, do, lse, delta, causal, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 def _flash_setup(ctx, inputs, output):
@@ -414,11 +415,10 @@ def _flash_setup(ctx, inputs, output):
 
 def _flash_backward(ctx, do, _dlse):
     """The JAX ``_flash`` custom_vjp's backward: delta = rowsum(dO·O) in f32,
-    outside the kernels, then K2 and K3."""
+    outside the kernels, then one backward call."""
     q, k, v, o, lse = ctx.saved_tensors
     delta = (do.float() * o.float()).sum(-1)
-    dq = flash_bwd_dq_op(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
-    dk, dv = flash_bwd_dkv_op(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+    dq, dk, dv = flash_bwd_op(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
     return dq, dk, dv, None, None, None, None
 
 
@@ -434,7 +434,7 @@ def flash_fwd(
     q, k, v, *, causal: bool, scale: float, block_q: int = BLOCK_Q, block_k: int = BLOCK_K
 ):
     """K1 on CUDA tensors, its plain version on CPU tensors; differentiable
-    (K2 and K3 in the backward). Returns (o, lse)."""
+    (``flash_bwd_op`` in the backward). Returns (o, lse)."""
     _check_device(q)
     return flash_fwd_op(q, k, v, causal, float(scale), block_q, block_k)
 

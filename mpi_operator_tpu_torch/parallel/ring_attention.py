@@ -12,9 +12,9 @@ others), and each rank folds every block that is not in its future:
   rank's own block and ``causal=False`` on older ones; blocks newer than
   the local queries are skipped. The (o_j, lse_j) pairs merge in f32 by
   the log-sum-exp rule and o is cast once at the end;
-- backward: delta = rowsum(dO·O) from the merged O, then K2 and K3
-  (``flash_bwd_dq_op`` / ``flash_bwd_dkv_op``) on each visited block with
-  the merged lse, so every block sees the global softmax. dq sums at home
+- backward: delta = rowsum(dO·O) from the merged O, then the backward
+  kernels (``flash_bwd_op``) on each visited block with the merged lse, so
+  every block sees the global softmax. dq sums at home
   in f32; the dk/dv partials of a block travel with it around the ring,
   summed in f32, and take one last hop home to the block's owner.
 
@@ -43,8 +43,7 @@ from mpi_operator_tpu_torch.kernels.flash_attention import (
     BLOCK_K,
     BLOCK_Q,
     flash_attention,
-    flash_bwd_dkv_op,
-    flash_bwd_dq_op,
+    flash_bwd_op,
     flash_fwd_op,
 )
 from mpi_operator_tpu_torch.parallel.collectives import (
@@ -119,11 +118,9 @@ def fold_forward(q, blocks: Iterable, *, scale: float):
 
 
 def block_backward(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """K2 and K3 of one block against the merged ``lse`` and ``delta``:
+    """The backward of one block against the merged ``lse`` and ``delta``:
     (dq, dk, dv) of this block's share, in the kernels' dtype."""
-    dq = flash_bwd_dq_op(q, k, v, do, lse, delta, causal, scale)
-    dk, dv = flash_bwd_dkv_op(q, k, v, do, lse, delta, causal, scale)
-    return dq, dk, dv
+    return flash_bwd_op(q, k, v, do, lse, delta, causal, scale)
 
 
 def attention_delta(do, o):

@@ -7,7 +7,9 @@ Imports no JAX, so it runs on a machine without it:
 
 Bounds as in chip_smoke.py: o 3e-2 abs, lse 1e-3 abs, dq/dk/dv
 3e-2·max|ref| as ceilings, and beside them every row within TOL_ROW of the
-reference row, relative to its RMS.
+reference row, relative to its RMS. The backward's dq is summed over k
+tiles by TMA reduce-adds whose order can change between launches; two
+launches are held to each other by ``_reduction_order_close``.
 """
 
 import numpy as np
@@ -41,13 +43,23 @@ def _row_err(got, ref):
     return float(((g - r).pow(2).mean(-1).sqrt() / row_rms).max())
 
 
+def _reduction_order_close(a, b):
+    """dq of two launches on the same inputs: the f32 sums differ only in
+    the order of their terms, so after the rounding to bf16 each value is
+    within one bf16 ulp (2^-7 of it) of the other, plus the f32 reordering
+    error of a sum that cancels to near zero (under 1e-5 of max|dq|)."""
+    atol = 1e-5 * float(b.float().abs().max())
+    torch.testing.assert_close(a.float(), b.float(), rtol=2 ** -7, atol=atol)
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU or interpret mode")
 
 
 def _check_against_plain(seed, b, t, h, h_kv, d, causal):
-    """K1, K2 and K3 against their plain versions on one input."""
+    """K1 and the backward (K3 and the dq pass) against their plain
+    versions on one input."""
     q, k, v, do = _inputs(seed, b, t, h, h_kv, d)
     scale = d ** -0.5
     o, lse = tfa.flash_fwd_cuda(q, k, v, causal, scale)
@@ -57,8 +69,8 @@ def _check_against_plain(seed, b, t, h, h_kv, d, causal):
     assert _max_err(lse, lse_ref) <= 1e-3
     delta = (do.float() * o_ref.float()).sum(-1)
     args = (q, k, v, do, lse_ref, delta, causal, scale)
-    got = (tfa.flash_bwd_dq_cuda(*args), *tfa.flash_bwd_dkv_cuda(*args))
-    want = (tfa.flash_bwd_dq_plain(*args), *tfa.flash_bwd_dkv_plain(*args))
+    got = tfa.flash_bwd_cuda(*args)
+    want = tfa.flash_bwd_plain(*args)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == torch.bfloat16
         assert _max_err(g, w) <= 3e-2 * float(w.float().abs().max())
@@ -69,7 +81,8 @@ def _check_against_plain(seed, b, t, h, h_kv, d, causal):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_cuda_kernels_match_plain(causal, d):
-    """K1, K2 and K3 with ragged T (200) and GQA (8 q heads on 2 kv heads)."""
+    """K1 and the backward with ragged T (200) and GQA (8 q heads on 2 kv
+    heads)."""
     _need_card()
     _check_against_plain(5, 2, 200, 8, 2, d, causal)
 
@@ -81,18 +94,34 @@ def test_cuda_kernels_match_plain(causal, d):
     "t,h,h_kv",
     [
         (17, 8, 2),    # T shorter than one tile
-        (65, 8, 2),    # T one past K2's first k stage, inside one q tile
+        (65, 8, 2),    # T one past K3's first q stage, inside one k tile
         (129, 8, 2),   # T one past a tile boundary
         (129, 4, 4),   # MHA, g = 1
         (200, 8, 1),   # g = 8
     ],
 )
 def test_cuda_kernels_edge_shapes(t, h, h_kv, d, causal):
-    """K1's 128 x 128, K2's 128 q x 64 k and K3's 128 k x 64 q tiles at the
-    edges of T and of the q-head group; at D 16 and 32 also the columns the
-    TMA box zero-fills past D, which must change no sum and never be stored."""
+    """K1's 128 x 128 and K3's 128 k x 64 q tiles at the edges of T and of
+    the q-head group; at D 16 and 32 also the columns the TMA box zero-fills
+    past D, which must change no sum and never be stored, nor be added into
+    dq's accumulator past D."""
     _need_card()
     _check_against_plain(6, 1, t, h, h_kv, d, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1000, 4096])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_fused_backward_matches_plain(t, g, causal, d):
+    """The one backward (K3 with dq's reduce-adds, then the dq pass) against
+    the plain backward at ragged T 1000 (8 k tiles, a partial last one) and
+    T 4096 (32 k tiles, up to 64 reduce-adds into one dq row of a causal
+    head), MHA and GQA 4:1, under _check_against_plain's ceilings and
+    per-row bars."""
+    _need_card()
+    _check_against_plain(10 + d + g, 1, t, 2 * g, 2, d, causal)
 
 
 @pytest.mark.cuda
@@ -120,8 +149,9 @@ def test_wgmma_operand_layouts(n, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_cuda_kernels_bitwise_deterministic(d):
-    """No atomics: two launches of K1, K2 or K3 on the same inputs give the
-    same bits."""
+    """No atomics in K1's o and lse or K3's dk and dv: two launches on the
+    same inputs give the same bits. dq's sum is added up by reduce-adds in
+    no fixed order: test_dq_of_two_launches_agree_within_reduction_order."""
     _need_card()
     q, k, v, do = _inputs(8, 2, 300, 8, 2, d)
     scale = d ** -0.5
@@ -130,10 +160,71 @@ def test_cuda_kernels_bitwise_deterministic(d):
     assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
     delta = (do.float() * o1.float()).sum(-1)
     args = (q, k, v, do, lse1, delta, True, scale)
-    assert torch.equal(tfa.flash_bwd_dq_cuda(*args), tfa.flash_bwd_dq_cuda(*args))
-    dk1, dv1 = tfa.flash_bwd_dkv_cuda(*args)
-    dk2, dv2 = tfa.flash_bwd_dkv_cuda(*args)
+    _, dk1, dv1 = tfa.flash_bwd_cuda(*args)
+    _, dk2, dv2 = tfa.flash_bwd_cuda(*args)
     assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_dq_of_two_launches_agree_within_reduction_order(d, causal):
+    """Two launches of the backward on the same inputs at T 1000 (8 k tiles
+    add into most dq rows) give dq within _reduction_order_close of each
+    other, and each within its bars of the plain dq."""
+    _need_card()
+    q, k, v, do = _inputs(12, 2, 1000, 8, 2, d)
+    scale = d ** -0.5
+    o, lse = tfa.flash_fwd_cuda(q, k, v, causal, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, causal, scale)
+    dq1, dq2 = tfa.flash_bwd_cuda(*args)[0], tfa.flash_bwd_cuda(*args)[0]
+    _reduction_order_close(dq1, dq2)
+    want = tfa.flash_bwd_plain(*args)[0]
+    for dq in (dq1, dq2):
+        assert _max_err(dq, want) <= 3e-2 * float(want.float().abs().max())
+        assert _row_err(dq, want) <= TOL_ROW
+
+
+@pytest.mark.cuda
+def test_dq_pass_scales_and_rounds():
+    """The dq pass is bf16(scale * acc), bit for bit, at a size that is not
+    a multiple of its block and takes more than one grid-stride step."""
+    _need_card()
+    rng = np.random.default_rng(13)
+    acc = torch.from_numpy(rng.standard_normal((3, 5, 2 ** 17 + 8, 16), np.float32)).cuda()
+    tfa.reset_launches()
+    got = tfa.flash_bwd_dq_cuda(acc, 0.125)
+    assert tfa.launches["flash_bwd_dq"] == 1
+    assert got.dtype == torch.bfloat16 and torch.equal(got, (acc * 0.125).to(torch.bfloat16))
+    with pytest.raises(ValueError, match="dq pass"):
+        tfa.flash_bwd_dq_cuda(acc.double(), 0.125)
+
+
+@pytest.mark.cuda
+def test_k3_alone_adds_into_the_accumulator():
+    """K3 launched alone adds dq's unscaled f32 sum onto what the
+    accumulator holds (the smoke times it so, on a buffer it reuses), gives
+    the backward's dk and dv bit for bit, and refuses an accumulator it
+    could not add into in place before any launch."""
+    _need_card()
+    q, k, v, do = _inputs(14, 2, 300, 8, 2, 128)
+    scale = 128 ** -0.5
+    o, lse = tfa.flash_fwd_cuda(q, k, v, True, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    dq, dk, dv = tfa.flash_bwd_cuda(*args, True, scale)
+    base = torch.full(q.shape, 3.0, device="cuda")
+    acc = base.clone()
+    tfa.reset_launches()
+    dk1, dv1 = tfa.flash_bwd_dkv_cuda(*args, acc, True, scale)
+    assert tfa.launches == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 1}
+    assert torch.equal(dk1, dk) and torch.equal(dv1, dv)
+    _reduction_order_close(tfa.flash_bwd_dq_cuda(acc - base, scale), dq)
+    for bad in (acc.bfloat16(), acc[:, :4], acc.transpose(2, 3).contiguous().transpose(2, 3)):
+        with pytest.raises(ValueError, match="dq_acc"):
+            tfa.flash_bwd_dkv_cuda(*args, bad, True, scale)
+    assert tfa.launches["flash_bwd_dkv"] == 1
 
 
 @pytest.mark.cuda
@@ -155,20 +246,22 @@ def test_cuda_wrapper_checks_run_before_any_launch():
 @pytest.mark.cuda
 def test_operators_launch_the_kernels_bitwise():
     """The torch.library operators reach the same launchers: on CUDA tensors
-    flash_fwd_op, flash_bwd_dq_op and flash_bwd_dkv_op give bitwise the
-    launchers' outputs, and each counts one launch."""
+    flash_fwd_op and flash_bwd_op give the launchers' outputs (bitwise but
+    for dq, whose reduce-adds run in no fixed order), and each kernel counts
+    one launch."""
     _need_card()
     q, k, v, do = _inputs(9, 2, 257, 8, 2, 128)
     scale = 128 ** -0.5
     o, lse = tfa.flash_fwd_cuda(q, k, v, True, scale)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta, True, scale)
-    want = (o, lse, tfa.flash_bwd_dq_cuda(*args), *tfa.flash_bwd_dkv_cuda(*args))
+    want = (o, lse, *tfa.flash_bwd_cuda(*args))
     tfa.reset_launches()
     got = (*tfa.flash_fwd_op(q, k, v, True, scale, tfa.BLOCK_Q, tfa.BLOCK_K),
-           tfa.flash_bwd_dq_op(*args), *tfa.flash_bwd_dkv_op(*args))
+           *tfa.flash_bwd_op(*args))
     torch.cuda.synchronize()
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    _reduction_order_close(got[2], want[2])
+    assert all(torch.equal(g, w) for i, (g, w) in enumerate(zip(got, want)) if i != 2)
     assert tfa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
 
 
@@ -176,8 +269,9 @@ def test_operators_launch_the_kernels_bitwise():
 def test_remat_launches_k1_once_per_layer_on_the_card():
     """The per-layer remat keeps K1's (o, lse): one forward + backward of a
     small Llama launches K1 once per layer (twice under a plain checkpoint
-    of the whole layer), K2 and K3 once each, and the gradients are bitwise
-    those without remat."""
+    of the whole layer), K3 and the dq pass once each, and the gradients are
+    bitwise those without remat. At T 200 two k tiles add into a dq row, and
+    two f32 adds onto zero give the same bits in either order."""
     import dataclasses
 
     from mpi_operator_tpu_torch.models import llama

@@ -10,6 +10,7 @@ port sums K3's group in f32, the Pallas wrapper sums bf16 partials).
 """
 
 import importlib
+import importlib.util
 import inspect
 import os
 import re
@@ -103,8 +104,7 @@ def test_plain_kernels_match_pallas(causal, dtype, t, h, h_kv, block):
     o_j = _torch(_np(jo), tdt)
     delta = (tdo.float() * o_j.float()).sum(-1)
     args = (tq, tk, tv, tdo, lse_j, delta, causal, scale)
-    dq = tfa.flash_bwd_dq_plain(*args)
-    dk, dv = tfa.flash_bwd_dkv_plain(*args)
+    dq, dk, dv = tfa.flash_bwd_plain(*args)
     grad_tol = F32_GRAD if dtype == "f32" else BF16
     for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
         assert got.dtype == tdt and got.shape == want.shape
@@ -215,3 +215,100 @@ def test_wrappers_refuse_other_devices_and_bad_layout():
         tfa.flash_fwd_cuda(*(torch.zeros(1, 2, 8, 48, dtype=torch.bfloat16),) * 3, True, 1.0)
     with pytest.raises(ValueError, match="layout"):
         tfa.flash_attention(q, q, q, layout="bthx")
+    x = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        tfa.flash_bwd_dkv_cuda(x, x, x, x, lse, lse, torch.zeros(x.shape), True, 1.0)
+
+
+def _bwd_args(causal, g, dtype=torch.bfloat16):
+    """A backward's inputs at ragged T (72: a partial last tile) and 2 kv
+    heads, each with g q heads; lse and delta from the plain K1."""
+    q, k, v, do = (_torch(x, dtype) for x in _arrays(4, 2, 72, 2 * g, 2, 16))
+    scale = 16 ** -0.5
+    o, lse = tfa.flash_fwd_plain(q, k, v, causal, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    return (q, k, v, do, lse, delta, causal, scale)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 4])
+def test_flash_bwd_op_on_cpu_is_the_plain_backward(causal, g):
+    """On CPU tensors the one backward operator returns exactly the plain
+    dq, dk and dv, in the inputs' dtype and shapes."""
+    args = _bwd_args(causal, g)
+    got = tfa.flash_bwd_op(*args)
+    want = tfa.flash_bwd_plain(*args)
+    assert len(got) == 3
+    for x, w, like in zip(got, want, args[:3]):
+        assert x.dtype == like.dtype and x.shape == like.shape
+        assert torch.equal(x, w)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 4])
+def test_flash_bwd_op_fake_gives_shapes_and_dtypes(causal, g):
+    """The operator's fake (what shape propagation and compiled graphs see)
+    gives dq like q and dk, dv like k and v, without running the kernels."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    args = _bwd_args(causal, g)
+    with FakeTensorMode() as mode:
+        fake = [mode.from_tensor(x) for x in args[:6]]
+        dq, dk, dv = tfa.flash_bwd_op(*fake, causal, args[7])
+    for x, like in zip((dq, dk, dv), args[:3]):
+        assert x.shape == like.shape and x.dtype == like.dtype and x.device == like.device
+
+
+class _OpLog(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records the port's attention operators as the dispatcher sees them."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == tfa.OPS_NAMESPACE:
+            self.ops.append(func._opname)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 4])
+def test_backward_makes_one_backward_call(causal, g):
+    """The autograd backward of flash attention and the ring's per-block
+    backward each make one call to the one backward operator, with the
+    forward's lse and the same delta, and nothing else of the port's."""
+    from mpi_operator_tpu_torch.parallel import ring_attention as tra
+
+    q, k, v, do, lse, delta, _, scale = _bwd_args(causal, g)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    o = tfa.flash_attention(qg, kg, vg, causal=causal, scale=scale, layout="bhtd")
+    with _OpLog() as log:
+        grads = torch.autograd.grad(o, (qg, kg, vg), do)
+    assert log.ops == ["flash_bwd"]
+    for x, w in zip(grads, tfa.flash_bwd_plain(q, k, v, do, lse, delta, causal, scale)):
+        assert torch.equal(x, w)
+    with _OpLog() as log:
+        got = tra.block_backward(q, k, v, do, lse, delta, causal, scale)
+    assert log.ops == ["flash_bwd"] and len(got) == 3
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 4])
+def test_smoke_plain_backward_by_head_is_the_plain_backward(causal, g):
+    """chip_smoke.py holds the backward at the benchmark's shapes against
+    the plain version run one q head at a time (over a whole kv head it
+    would not fit the card). That is flash_bwd_plain's arithmetic: the same
+    values but for the order of dk's and dv's f32 sums over the group, so
+    within one bf16 ulp of each value."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    args = _bwd_args(causal, g)
+    got = smoke._plain_bwd_by_head(*args)
+    for x, w, like in zip(got, tfa.flash_bwd_plain(*args), args[:3]):
+        assert x.dtype == like.dtype and x.shape == like.shape
+        torch.testing.assert_close(x.float(), w.float(), rtol=2 ** -7,
+                                   atol=1e-5 * float(w.float().abs().max()))
