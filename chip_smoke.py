@@ -115,6 +115,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``TPUJOB_*`` env, on the card): ResNet at ``examples/resnet.yaml``'s
    config, MNIST (20 steps) and π. tests/test_torch_operator_cuda.py runs
    the manifests themselves through the operator on the card.
+17. the sliding window at the Trinity cell's attention (B 4, T 8192, H 32,
+   Hkv 4, D 128, W 2048): K1 and the backward against their plain versions
+   on two (batch row, kv head) groups, the first and the last, with phase
+   3's ceilings and per-row bound, a window of T against the causal kernels (identical but for dq's
+   reduce-add order), and K1, the backward and K3 alone timed, windowed and
+   causal, beside their bound on the window's pairs;
+18. the routed expert products at that cell's shape (128 experts x 2048
+   rows, 2048 -> 1024): ``moe.grouped_mm`` (``torch._grouped_mm``, whose
+   backward is the transposed grouped products) against single experts' products,
+   timed beside its bound, one dense product of the same FLOPs and the
+   per-expert loop;
+19. a Trinity training step at that cell's widths and shapes (6 layers,
+   vocabulary 25,024, B 4, T 8192, per-layer remat) through
+   ``Trainer.train_step``, after one warm-up step, with ``launches`` zeroed
+   just before it and the device traced: 6 launches of K1, K3 and the dq
+   pass each, of which 5 of K1 and 5 of K3 are the windowed instances, and
+   48 grouped expert products (4 MoE layers x 3 products x the forward,
+   the remat's recompute and the backward's two).
 
 The line before the last is a JSON object with one entry per kernel (its
 registers and spill bytes per head dim from ptxas, from phase 7 its
@@ -180,6 +198,12 @@ TOL_O, TOL_LSE, TOL_GRAD_REL = 3e-2, 1e-3, 3e-2
 TOL_ROW, ROW_FLOOR = 1e-2, 0.1
 RING_SHAPE, RING_N = (1, 16384, 16, 4, 128), 4  # B, T, H, Hkv, D; ranks of the ring
 HEAD_DIMS = (16, 32, 64, 128)  # what the kernels are compiled at
+WINDOW_DIMS = (64, 128)  # and their windowed instances
+WINDOWED = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+# the benchmark's trinity-mini-l6.s8192-zipf attention (B, T, H, Hkv, D) and its window
+WINDOW_SHAPE, WINDOW = (4, 8192, 32, 4, 128), 2048
+# its routed expert products: 128 experts x 2048 rows (4 x 8192 tokens x top-8), 2048 -> 1024
+GROUPED_SHAPE = (128, 2048, 2048, 1024)
 SMALL_D = (16, 32)
 # the worker's manifest env (examples/llama.yaml, as the operator test runs it)
 MANIFEST_ENV = {"LLAMA_CONFIG": "tiny", "LLAMA_BATCH": "2", "LLAMA_SEQ": "128",
@@ -235,13 +259,19 @@ def phase_build() -> dict:
     out = {}
     for wrapper, kernel in CUDA_KERNEL.items():
         regs, spills = {}, {}
-        for d in HEAD_DIMS:
-            r = res.get(f"{kernel}<{d}>", res.get(kernel))
+        # K1 and K3 are instances <D, WIN>: WIN 0 the causal kernel, WIN 1 the
+        # windowed one (at WINDOW_DIMS); the dq pass has no template
+        keys = [(str(d), f"{kernel}<{d},0>") for d in HEAD_DIMS]
+        keys += [(f"{d}w", f"{kernel}<{d},1>") for d in WINDOW_DIMS]
+        if kernel not in WINDOWED:
+            keys = [(str(d), kernel) for d in HEAD_DIMS]
+        for label, key in keys:
+            r = res.get(key)
             if r is None:
-                fail(f"ptxas reported nothing for {kernel}<{d}>")
-            regs[str(d)] = r["registers"]
-            spills[str(d)] = r["spill_stores"] + r["spill_loads"]
-        log(f"[build] {kernel}: registers {regs}, spill bytes {spills} (per D)")
+                fail(f"ptxas reported nothing for {key}")
+            regs[label] = r["registers"]
+            spills[label] = r["spill_stores"] + r["spill_loads"]
+        log(f"[build] {kernel}: registers {regs}, spill bytes {spills} (per D; w: windowed)")
         out[wrapper] = {"registers": regs, "spill_bytes": spills}
     return out
 
@@ -803,6 +833,210 @@ def phase_small_d(smi: str) -> dict:
     return out
 
 
+def _window_bound(shape, window: int, n_matmuls: int):
+    """(least time in ms, FLOP) of ``n_matmuls`` products over the pairs a
+    sliding window lets through, at the bf16 peak (operations bound them)."""
+    b, t, h, _, d = shape
+    w = min(window, t)
+    pairs = w * (w + 1) // 2 + (t - w) * w
+    flops = 2 * n_matmuls * b * h * d * pairs
+    return 1e3 * flops / BF16_FLOPS_PER_S, flops
+
+
+def phase_window(smi: str) -> dict:
+    """Phase 17: the sliding window at the Trinity cell's attention (B 4, T
+    8192, H 32, Hkv 4, D 128, W 2048). K1 and the backward against their
+    plain versions on two groups of a kv head's 8 q heads, batch row 0's
+    first kv head and the last row's last (the plain backward's f32 tiles
+    of T x T do not fit whole), with phase 3's ceilings and per-row bound;
+    W >= T against the causal kernels (K1 and dk/dv bit for bit, dq within
+    its reduce-add order); then K1, the backward and K3 alone, windowed and
+    causal, timed with CUDA events beside their bound (operations on the
+    window's pairs) and the plain versions on the last group. Returns each
+    kernel's times."""
+    from mpi_operator_tpu_torch.kernels import flash_attention as fa
+
+    b, t, h, h_kv, d = WINDOW_SHAPE
+    scale = d ** -0.5
+    q, k, v, do = _inputs(WINDOW_SHAPE, seed=17)
+    g = h // h_kv
+    tag = f"{WINDOW_SHAPE} W {WINDOW}"
+    with torch.no_grad():
+        o, lse = fa.flash_fwd_cuda(q, k, v, True, scale, WINDOW)
+        delta = (do.float() * o.float()).sum(-1)
+        dq, dk, dv = fa.flash_bwd_cuda(q, k, v, do, lse, delta, True, scale, WINDOW)
+        torch.cuda.synchronize()
+        # (batch row, kv head) groups far apart: the first and the last
+        for row, head in ((0, 0), (b - 1, h_kv - 1)):
+            part = (slice(row, row + 1), slice(head * g, (head + 1) * g))
+            kv = (slice(row, row + 1), slice(head, head + 1))
+            one = (q[part], k[kv], v[kv], do[part])
+            where = f"{tag} batch {row} kv head {head}"
+            o_ref, lse_ref = fa.flash_fwd_plain(*one[:3], True, scale, window=WINDOW)
+            _check(f"K1 o windowed {where}", o[part], o_ref, TOL_O)
+            e_lse = _max_err(lse[part], lse_ref)
+            log(f"[window] K1 lse {where}: max abs err {e_lse:.3e} (bound {TOL_LSE:.1e})")
+            if not e_lse <= TOL_LSE:
+                fail(f"K1 lse windowed disagrees with its plain version: {e_lse}")
+            refs = fa.flash_bwd_plain(*one, lse[part], delta[part], True, scale, WINDOW)
+            for name, got, ref in zip(("dq", "dk", "dv"), (dq[part], dk[kv], dv[kv]), refs):
+                _check(f"K3 {name} windowed {where}", got, ref, _grad_bound(ref))
+            del refs, o_ref, lse_ref
+        # a window of T or more is the causal mask
+        o_c, lse_c = fa.flash_fwd_cuda(q, k, v, True, scale)
+        o_t, lse_t = fa.flash_fwd_cuda(q, k, v, True, scale, t)
+        delta_c = (do.float() * o_c.float()).sum(-1)
+        acc_c, acc_t = (torch.zeros(q.shape, device="cuda") for _ in range(2))
+        dkv_c = fa.flash_bwd_dkv_cuda(q, k, v, do, lse_c, delta_c, acc_c, True, scale)
+        dkv_t = fa.flash_bwd_dkv_cuda(q, k, v, do, lse_c, delta_c, acc_t, True, scale, t)
+        torch.cuda.synchronize()
+        same = (torch.equal(o_c, o_t) and torch.equal(lse_c, lse_t)
+                and all(torch.equal(a, c) for a, c in zip(dkv_c, dkv_t)))
+        e_acc = _max_err(acc_c, acc_t) / float(acc_c.abs().max())
+        log(f"[window] W {t} >= T against causal: K1 and dk/dv identical {same}, dq's f32 "
+            f"sum {e_acc:.2e} of its max (bound 1e-5)")
+        if not (same and e_acc <= 1e-5):
+            fail("a window of T does not give the causal kernels' result")
+        del o_c, lse_c, o_t, lse_t, acc_c, acc_t, dkv_c, dkv_t
+        torch.cuda.empty_cache()
+        acc = torch.zeros(q.shape, device="cuda")
+        out = {}
+        args = (q, k, v, do, lse, delta)
+        plain_one = (one, lse[part], delta[part])
+        for win in (WINDOW, 0):
+            label = f"W {win}" if win else "causal"
+            fwd_ms = _time_ms(lambda: fa.flash_fwd_cuda(q, k, v, True, scale, win))
+            bwd_ms = _time_ms(lambda: fa.flash_bwd_cuda(*args, True, scale, win))
+            k3_ms = _time_ms(lambda: fa.flash_bwd_dkv_cuda(*args, acc, True, scale, win))
+            fwd_bound, fwd_flops = _window_bound(WINDOW_SHAPE, win or t, 2)
+            bwd_bound, _ = _window_bound(WINDOW_SHAPE, win or t, 5)
+            plain_fwd = _time_ms(lambda: fa.flash_fwd_plain(*one[:3], True, scale, window=win),
+                                 reps=1)
+            plain_bwd = _time_ms(lambda: fa.flash_bwd_plain(
+                *plain_one[0], *plain_one[1:], True, scale, win), reps=1)
+            out[label] = {"flash_fwd_ms": fwd_ms, "flash_fwd_bound_ms": fwd_bound,
+                          "flash_bwd_ms": bwd_ms, "k3_ms": k3_ms, "k3_bound_ms": bwd_bound,
+                          "plain_fwd_ms_one_group": plain_fwd,
+                          "plain_bwd_ms_one_group": plain_bwd}
+            log(f"[window] {label} {WINDOW_SHAPE}: K1 {fwd_ms:.3f} ms "
+                f"({100 * fwd_bound / fwd_ms:.1f} % of {fwd_bound:.3f}), backward "
+                f"{bwd_ms:.3f} ms, K3 alone {k3_ms:.3f} ms "
+                f"({100 * bwd_bound / k3_ms:.1f} % of {bwd_bound:.3f}); plain on 1 of "
+                f"{b * h_kv} (batch, kv head) groups: K1 {plain_fwd:.2f} ms, backward "
+                f"{plain_bwd:.2f} ms [{smi}]")
+    del q, k, v, do, o, lse, delta, dq, dk, dv, acc
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_grouped(smi: str) -> dict:
+    """Phase 18: the routed expert products at the Trinity cell's shape (128
+    experts x 2048 rows, 2048 -> 1024, bf16): ``moe.grouped_mm``
+    (``torch._grouped_mm``) forward, and its backward's two transposed
+    grouped products, against three single experts' products, timed beside
+    their bound, one dense ``torch.matmul`` of the same FLOPs (the
+    yardstick) and the per-expert loop."""
+    from mpi_operator_tpu_torch.parallel import moe
+
+    e, rows, k_dim, n = GROUPED_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x = (torch.randn(e * rows, k_dim, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    w = (torch.randn(e, k_dim, n, generator=gen, device="cuda") * 0.03).to(torch.bfloat16)
+    dy = (torch.randn(e * rows, n, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    ends = torch.arange(1, e + 1, device="cuda", dtype=torch.int32) * rows
+    with torch.no_grad():
+        y = moe.grouped_mm(x, w, ends)
+        for i in (0, e // 2, e - 1):
+            r = slice(i * rows, (i + 1) * rows)
+            err = _max_err(y[r], x[r] @ w[i]) / float((x[r] @ w[i]).float().abs().max())
+            if not err <= 1e-2:
+                fail(f"grouped_mm disagrees with the product of expert {i}: {err}")
+    flops = 2.0 * e * rows * k_dim * n
+    bound_ms = 1e3 * flops / BF16_FLOPS_PER_S
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+
+    def fwd_bwd():
+        y_ = moe.grouped_mm(xg, wg, ends)
+        torch.autograd.grad(y_, (xg, wg), dy)
+
+    with torch.no_grad():
+        fwd_ms = _time_ms(lambda: moe.grouped_mm(x, w, ends))
+        dense_ms = _time_ms(lambda: x @ w[0])
+        loop_ms = _time_ms(lambda: moe.grouped_mm_plain(x, w, ends), reps=3)
+    fb_ms = _time_ms(fwd_bwd)
+    out = {"fwd_ms": fwd_ms, "bound_ms": bound_ms, "fwd_bwd_ms": fb_ms,
+           "library_dense_ms": dense_ms, "plain_loop_ms": loop_ms}
+    log(f"[grouped] {e} experts x {rows} rows, {k_dim} -> {n} bf16: forward {fwd_ms:.3f} ms "
+        f"({100 * bound_ms / fwd_ms:.1f} % of {bound_ms:.3f}), forward + backward {fb_ms:.3f} ms "
+        f"({100 * 3 * bound_ms / fb_ms:.1f} % of 3 products), one dense matmul of the same "
+        f"FLOPs {dense_ms:.3f} ms, per-expert loop {loop_ms:.3f} ms [{smi}]")
+    return out
+
+
+TRINITY_STEP = {"n_layers": 6, "vocab": 25_024, "batch": 4, "seq": 8192}
+
+
+def phase_trinity_step(smi: str) -> dict:
+    """Phase 19: one Trinity training step at the cell's widths and shapes
+    (``models.MODELS["trinity-mini"]`` cut to 6 layers and 25,024 ids, B 4,
+    T 8192, per-layer remat, AdamW) through ``Trainer.train_step``, after a
+    warm-up step: ``launches`` zeroed just before it, and its device kernels
+    counted by name in a ``torch.profiler`` trace. Returns the counts."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpi_operator_tpu_torch.kernels import flash_attention as fa
+    from mpi_operator_tpu_torch.models import MODELS, llama
+    from mpi_operator_tpu_torch.ops.data import make_global_batch
+    from mpi_operator_tpu_torch.ops.trainer import Trainer, TrainerConfig
+
+    module, factory = MODELS["trinity-mini"]
+    n = TRINITY_STEP
+    cfg = dataclasses.replace(factory(), n_layers=n["n_layers"], vocab=n["vocab"],
+                              remat_layers=True)
+    model = module.init(cfg, torch.Generator(device="cuda").manual_seed(19), "cuda")
+    trainer = Trainer(functools.partial(llama.loss_fn, ce_chunk=2048),
+                      TrainerConfig(learning_rate=3e-4, warmup_steps=2000, adam_mu_bf16=True))
+    state = trainer.init_state(model)
+    rng = np.random.default_rng(19)
+    host = {"tokens": rng.integers(0, n["vocab"], (n["batch"], n["seq"]), dtype=np.int32)}
+    batch = make_global_batch(host, "cuda")
+    state, _ = trainer.train_step(state, batch)  # warm-up: every shape built
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, metrics = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(fa.launches)
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    counts = {
+        "flash_fwd windowed": sum("flash_fwd_kernel<128, 1>" in x for x in names),
+        "flash_fwd causal": sum("flash_fwd_kernel<128, 0>" in x for x in names),
+        "flash_bwd_dkv windowed": sum("flash_bwd_dkv_kernel<128, 1>" in x for x in names),
+        "flash_bwd_dkv causal": sum("flash_bwd_dkv_kernel<128, 0>" in x for x in names),
+        "grouped products": sum("GroupProblemShape" in x for x in names),
+    }
+    loss = float(metrics["loss"])
+    log(f"[trinity] one step at B {n['batch']} T {n['seq']}, {n['n_layers']} layers, vocab "
+        f"{n['vocab']}: {step_ms:.1f} ms (traced), loss {loss:.4f}; launches {launches}; "
+        f"device kernels {counts} [{smi}]")
+    del state, model, trainer, batch, metrics, prof
+    torch.cuda.empty_cache()
+    if launches != {name: n["n_layers"] for name in REPLACES}:
+        fail(f"expected {n['n_layers']} launches of each kernel in a Trinity step: {launches}")
+    want = {"flash_fwd windowed": 5, "flash_fwd causal": 1, "flash_bwd_dkv windowed": 5,
+            "flash_bwd_dkv causal": 1, "grouped products": 48}
+    if counts != want or not math.isfinite(loss):
+        fail(f"expected {want} device kernels in a Trinity step and a finite loss: "
+             f"{counts}, {loss}")
+    return {"launches": launches, "kernels": counts, "step_ms": step_ms}
+
+
 def phase_worker_manifest(smi: str) -> dict:
     """Phase 9: the worker at examples/llama.yaml's config, tiny() as it is."""
     rc, rec, wall = _worker(MANIFEST_ENV, timeout=300)
@@ -1123,7 +1357,10 @@ def main() -> None:
     phase_quant_bench(smi, bf16_first_loss)
     phase_resnet(smi)
     phase_workers(smi)
-    log(json.dumps({"library_products": quant}))
+    window = phase_window(smi)
+    grouped = phase_grouped(smi)
+    phase_trinity_step(smi)
+    log(json.dumps({"library_products": quant, "window": window, "grouped_mm": grouped}))
     kernels = [
         {
             "name": name,

@@ -40,6 +40,12 @@
 // - Causal tile skipping is a loop bound from the same algebra as
 //   _causal_last_k_tile / _causal_first_q_tile, not a clamp of an index map;
 //   the heaviest tiles are scheduled first.
+// - A sliding window (key j visible to query i iff i - W < j <= i; the TPU
+//   kernels have none) is a second loop bound on the same walk: K1 starts at
+//   the first k tile that meets q0 - W + 1 (window_first_k_tile), K3 stops
+//   after the last q tile that meets k_end + W - 1 (window_last_q_tile), and
+//   the edge tiles mask the window's lower edge. It is the template flag WIN:
+//   the instances with WIN 0 are the causal kernels, code for code.
 // - The TPU wrappers zero-pad T to block multiples. Here every tile comes
 //   through a 3-D tensor map (D, T, B*heads), so TMA zero-fills rows past T
 //   instead of reading the next head, and drops them from a reduce-add; the
@@ -83,6 +89,20 @@ __device__ __forceinline__ int causal_first_q_tile(int ki) {
   return (ki * TK) / TQ;
 }
 
+// window_first_k_tile: the first k tile holding a key that some query of the
+// q tile starting at q0 sees through a window of W keys (q0 - W + 1).
+template <int TK>
+__device__ __forceinline__ int window_first_k_tile(int q0, int window) {
+  return max(0, q0 - window + 1) / TK;
+}
+
+// window_last_q_tile: the last q tile holding a query that sees some key of
+// the k tile whose last row is k_last through a window of W keys.
+template <int TQ>
+__device__ __forceinline__ int window_last_q_tile(int k_last, int window) {
+  return (k_last + window - 1) / TQ;
+}
+
 // dynamic shared memory, moved up to the 1024-byte boundary the 128-byte
 // swizzle needs (the launch asks for 1024 bytes more than the layout)
 __device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
@@ -117,11 +137,16 @@ template <int D> struct FwdSmem {
 // operands in shared memory), P = exp2(S - m) rounded to bf16 in place as
 // the A operand of O += P.V (V read MN-major). Each accumulator row lives in
 // the 4 threads of a quad: two shuffles for the max, two for the final sum.
-template <int DH>
+// With WIN the walk starts at window_first_k_tile, and keys at or below row -
+// window are masked (causal is then on). Until its first visible key a row's
+// max is NEG_INF and its p are exp2(0): the first visible key's correction,
+// exp2(NEG_INF - m), zeroes that sum and the accumulator.
+template <int DH, int WIN>
 __global__ void __launch_bounds__(WG_CTA, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H, int Hkv, int T, int causal, float scale_log2) {
+                 float* __restrict__ lse, int H, int Hkv, int T, int causal, int window,
+                 float scale_log2) {
   constexpr int D = tile_d(DH);
   using L = FwdSmem<D>;
   constexpr int NC = D / 64;  // 64-wide column blocks of a row
@@ -140,19 +165,22 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   const int q0 = qi * FWD_BQ;
   const int n_kb = (T + FWD_BK - 1) / FWD_BK;
   const int k_end = causal ? min(n_kb, causal_last_k_tile<FWD_BQ, FWD_BK>(qi) + 1) : n_kb;
+  const int k_first = WIN ? window_first_k_tile<FWD_BK>(q0, window) : 0;
+  const int n_k = k_end - k_first;
   const int tid = threadIdx.x, wg = tid / WG_THREADS, lane = tid % 32;
   const int warp_row = wg * 64 + (tid % WG_THREADS) / 32 * 16;  // warp's first row in the tile
   const int row = q0 + warp_row + lane / 4;  // q of accumulator registers i with i % 4 < 2; +8 else
 
   auto stage_k = [&](int s) { return reinterpret_cast<bf16*>(ring + s * L::kStage); };
   auto stage_v = [&](int s) { return reinterpret_cast<bf16*>(ring + s * L::kStage + L::kKV); };
-  auto load_kv = [&](int j) {
+  auto load_kv = [&](int j) {  // the walk's j-th tile, k tile k_first + j
     const int s = j & 1;
+    const int k0 = (k_first + j) * FWD_BK;
     hopper::mbar_expect_tx(&full[s], L::kStage);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      hopper::tma_load_3d(stage_k(s) + c * FWD_BK * 64, &tm_k, &full[s], c * 64, j * FWD_BK, bhk);
-      hopper::tma_load_3d(stage_v(s) + c * FWD_BK * 64, &tm_v, &full[s], c * 64, j * FWD_BK, bhk);
+      hopper::tma_load_3d(stage_k(s) + c * FWD_BK * 64, &tm_k, &full[s], c * 64, k0, bhk);
+      hopper::tma_load_3d(stage_v(s) + c * FWD_BK * 64, &tm_v, &full[s], c * 64, k0, bhk);
     }
   };
 
@@ -171,7 +199,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     for (int c = 0; c < NC; ++c)
       hopper::tma_load_3d(sQ + c * FWD_BQ * 64, &tm_q, qbar, c * 64, q0, bh);
     load_kv(0);
-    if (k_end > 1) load_kv(1);
+    if (n_k > 1) load_kv(1);
   }
 
   float acc_o[D / 2];
@@ -182,7 +210,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   const bf16* sQw = sQ + wg * 64 * 64;  // this warpgroup's rows in each column block
   hopper::mbar_wait(qbar, 0);
 
-  for (int j = 0; j < k_end; ++j) {
+  for (int j = 0; j < n_k; ++j) {
     const int s = j & 1;
     hopper::mbar_wait(&full[s], (j >> 1) & 1);
     float acc_s[FWD_BK / 2];
@@ -194,7 +222,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     hopper::wgmma_commit();
     // while S computes: refill the stage of tile j-1 with tile j+1 once
     // both warpgroups have released it
-    if (tid == 0 && j >= 1 && j + 1 < k_end) {
+    if (tid == 0 && j >= 1 && j + 1 < n_k) {
       hopper::mbar_wait(&empty[(j - 1) & 1], ((j - 1) >> 1) & 1);
       load_kv(j + 1);
     }
@@ -202,15 +230,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc_s);
 
-    const int k0 = j * FWD_BK;
-    const bool mask = k0 + FWD_BK > T || (causal && k0 + FWD_BK - 1 > q0 + warp_row);
+    const int k0 = (k_first + j) * FWD_BK;
+    const bool mask = k0 + FWD_BK > T || (causal && k0 + FWD_BK - 1 > q0 + warp_row) ||
+                      (WIN && k0 + window < q0 + warp_row + 16);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < FWD_BK / 2; ++i) {
       float x = acc_s[i] * scale_log2;
       if (mask) {
         const int col = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
-        if (col >= T || (causal && col > row + 8 * ((i / 2) % 2))) x = NEG_INF;
+        const int r = row + 8 * ((i / 2) % 2);
+        if (col >= T || (causal && col > r) || (WIN && col <= r - window)) x = NEG_INF;
       }
       acc_s[i] = x;
       mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
@@ -306,13 +336,15 @@ template <int D> struct DkvSmem {
 // per (q, k) pair (S^T, dP^T, dV, dK, dQ). The reduce-adds' order across k
 // tiles, and so dQ's f32 rounding, is not fixed from run to run; dq is
 // scaled and rounded by flash_bwd_dq_kernel.
-template <int DH>
+// With WIN the q walk ends at window_last_q_tile, and queries at or past
+// key + window get p = 0 (causal is then on).
+template <int DH, int WIN>
 __global__ void __launch_bounds__(WG_CTA, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                      const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                     int H, int Hkv, int T, int causal, float scale, float scale_log2) {
+                     int H, int Hkv, int T, int causal, int window, float scale, float scale_log2) {
   constexpr int D = tile_d(DH);
   using L = DkvSmem<D>;
   constexpr int NC = D / 64;
@@ -335,7 +367,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
   const int k0 = ki * DKV_BK;
   const int n_qb = (T + DKV_BQ - 1) / DKV_BQ;
   const int q_begin = causal ? causal_first_q_tile<DKV_BQ, DKV_BK>(ki) : 0;
-  const int nq = n_qb - q_begin;
+  const int q_end = WIN ? min(n_qb, window_last_q_tile<DKV_BQ>(k0 + DKV_BK - 1, window) + 1) : n_qb;
+  const int nq = q_end - q_begin;
   const int n_tiles = g * nq;  // (q head, q tile) pairs, q tiles innermost
   const int tid = threadIdx.x, wg = tid / WG_THREADS, lane = tid % 32;
   const bool leader = tid % WG_THREADS == 0;  // issues the warpgroup's reduce-adds
@@ -424,7 +457,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
                                 hopper::desc_k_major<DKV_BQ>(stage_do(s), kk), kk > 0);
     hopper::wgmma_commit();
 
-    const bool mask = q0 + DKV_BQ > T || (causal && q0 < k0 + warp_row + 15);
+    const bool mask = q0 + DKV_BQ > T || (causal && q0 < k0 + warp_row + 15) ||
+                      (WIN && q0 + DKV_BQ - 1 >= k0 + warp_row + window);
     hopper::wgmma_wait<1>();  // S^T is in
     hopper::fence_regs(acc_s);
 #pragma unroll
@@ -433,7 +467,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
       float p = exp2f(fmaf(acc_s[i], scale_log2, -s_lse[col] * LOG2E));
       if (mask) {
         const int q = q0 + col;
-        if (q >= T || (causal && q < row + 8 * ((i / 2) % 2))) p = 0.f;
+        const int kr = row + 8 * ((i / 2) % 2);
+        if (q >= T || (causal && q < kr) || (WIN && q >= kr + window)) p = 0.f;
       }
       acc_s[i] = p;
     }
@@ -605,26 +640,26 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int DH>
+template <int DH, int WIN>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
-               int Hkv, int T, int causal, float scale, cudaStream_t stream) {
+               int Hkv, int T, int causal, int window, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t e;
   if ((e = hopper::tmap_rows_bf16(&tq, q, B * H, T, DH, FWD_BQ)) != cudaSuccess) return (int)e;
   if ((e = hopper::tmap_rows_bf16(&tk, k, B * Hkv, T, DH, FWD_BK)) != cudaSuccess) return (int)e;
   if ((e = hopper::tmap_rows_bf16(&tv, v, B * Hkv, T, DH, FWD_BK)) != cudaSuccess) return (int)e;
   const size_t smem = FwdSmem<tile_d(DH)>::kBytes;
-  if ((e = prepare(flash_fwd_kernel<DH>, smem)) != cudaSuccess) return (int)e;
+  if ((e = prepare(flash_fwd_kernel<DH, WIN>, smem)) != cudaSuccess) return (int)e;
   dim3 grid((T + FWD_BQ - 1) / FWD_BQ, B * H);
-  flash_fwd_kernel<DH><<<grid, WG_CTA, smem, stream>>>(tq, tk, tv, (bf16*)o, (float*)lse, H, Hkv,
-                                                      T, causal, scale * LOG2E);
+  flash_fwd_kernel<DH, WIN><<<grid, WG_CTA, smem, stream>>>(tq, tk, tv, (bf16*)o, (float*)lse, H,
+                                                           Hkv, T, causal, window, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, int WIN>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dq_acc, void* dk, void* dv, int B, int H, int Hkv, int T,
-               int causal, float scale, cudaStream_t stream) {
+               int causal, int window, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo, tdq;
   cudaError_t e;
   if ((e = hopper::tmap_rows_bf16(&tq, q, B * H, T, DH, DKV_BQ)) != cudaSuccess) return (int)e;
@@ -633,11 +668,11 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   if ((e = hopper::tmap_rows_bf16(&tv, v, B * Hkv, T, DH, DKV_BK)) != cudaSuccess) return (int)e;
   if ((e = hopper::tmap_rows_f32(&tdq, dq_acc, B * H, T, DH, DKV_BQ)) != cudaSuccess) return (int)e;
   const size_t smem = DkvSmem<tile_d(DH)>::kBytes;
-  if ((e = prepare(flash_bwd_dkv_kernel<DH>, smem)) != cudaSuccess) return (int)e;
+  if ((e = prepare(flash_bwd_dkv_kernel<DH, WIN>, smem)) != cudaSuccess) return (int)e;
   dim3 grid((T + DKV_BK - 1) / DKV_BK, B * Hkv);
-  flash_bwd_dkv_kernel<DH><<<grid, WG_CTA, smem, stream>>>(
+  flash_bwd_dkv_kernel<DH, WIN><<<grid, WG_CTA, smem, stream>>>(
       tq, tk, tv, tdo, tdq, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, H, Hkv,
-      T, causal, scale, scale * LOG2E);
+      T, causal, window, scale, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -659,31 +694,52 @@ int launch_probe(const void* a, const void* b, const void* v, void* s, void* o,
 
 extern "C" {
 
+// window 0: none; above 0 (with causal, at D 64 and 128) the windowed instances
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
-                   int Hkv, int T, int D, int causal, float scale, void* stream) {
+                   int Hkv, int T, int D, int causal, int window, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (D == 16) return launch_fwd<16>(q, k, v, o, lse, B, H, Hkv, T, causal, scale, s);
-  if (D == 32) return launch_fwd<32>(q, k, v, o, lse, B, H, Hkv, T, causal, scale, s);
-  if (D == 64) return launch_fwd<64>(q, k, v, o, lse, B, H, Hkv, T, causal, scale, s);
-  if (D == 128) return launch_fwd<128>(q, k, v, o, lse, B, H, Hkv, T, causal, scale, s);
+  if (window > 0) {
+    if (!causal) return (int)cudaErrorInvalidValue;
+    if (D == 64) return launch_fwd<64, 1>(q, k, v, o, lse, B, H, Hkv, T, 1, window, scale, s);
+    if (D == 128) return launch_fwd<128, 1>(q, k, v, o, lse, B, H, Hkv, T, 1, window, scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (D == 16) return launch_fwd<16, 0>(q, k, v, o, lse, B, H, Hkv, T, causal, 0, scale, s);
+  if (D == 32) return launch_fwd<32, 0>(q, k, v, o, lse, B, H, Hkv, T, causal, 0, scale, s);
+  if (D == 64) return launch_fwd<64, 0>(q, k, v, o, lse, B, H, Hkv, T, causal, 0, scale, s);
+  if (D == 128) return launch_fwd<128, 0>(q, k, v, o, lse, B, H, Hkv, T, causal, 0, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // K3: dk, dv and the f32 dq accumulator, which must hold zeros (its
-// reduce-adds add into it)
+// reduce-adds add into it); window as flash_fwd_bf16's
 int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dq_acc, void* dk, void* dv,
-                       int B, int H, int Hkv, int T, int D, int causal, float scale, void* stream) {
+                       int B, int H, int Hkv, int T, int D, int causal, int window, float scale,
+                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (window > 0) {
+    if (!causal) return (int)cudaErrorInvalidValue;
+    if (D == 64)
+      return launch_dkv<64, 1>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, Hkv, T, 1, window,
+                               scale, s);
+    if (D == 128)
+      return launch_dkv<128, 1>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, Hkv, T, 1, window,
+                                scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (D == 16)
-    return launch_dkv<16>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, Hkv, T, causal, scale, s);
+    return launch_dkv<16, 0>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, Hkv, T, causal, 0,
+                             scale, s);
   if (D == 32)
-    return launch_dkv<32>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, Hkv, T, causal, scale, s);
+    return launch_dkv<32, 0>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, Hkv, T, causal, 0,
+                             scale, s);
   if (D == 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, Hkv, T, causal, scale, s);
+    return launch_dkv<64, 0>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, Hkv, T, causal, 0,
+                             scale, s);
   if (D == 128)
-    return launch_dkv<128>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, Hkv, T, causal, scale,
-                           s);
+    return launch_dkv<128, 0>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, Hkv, T, causal, 0,
+                              scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

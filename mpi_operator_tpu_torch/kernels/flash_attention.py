@@ -23,6 +23,13 @@ is no fallback from one to the other.
 Layout: [B, H, T, D] heads-major, k/v at Hkv heads (GQA: q head h reads kv
 head h // (H // Hkv)). lse and delta are [B, H, T] f32 (the TPU kernels'
 trailing singleton and block padding are gone).
+
+``window`` (0: none) is a sliding window on top of the causal mask, which
+the TPU kernels do not have: key j is visible to query i iff
+``i - window < j <= i``. The kernels skip the tiles outside it (K1 starts
+its k walk at the first tile that meets ``q0 - window + 1``, K3 ends its q
+walk at the last tile that meets ``k_end + window - 1``) and mask its lower
+edge inside the edge tiles; on the card it is compiled at D 64 and 128.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ BLOCK_K = 128
 # Head dims the kernels are compiled at. D 16 and 32 run in the D-64 tiles:
 # the TMA box zero-fills the columns past D, and only D columns are stored.
 HEAD_DIMS = (16, 32, 64, 128)
+WINDOW_HEAD_DIMS = (64, 128)  # the windowed instances (WIN 1)
 PROBE_DIMS = (64, 128)  # N and D of the wgmma layout probe
 
 # Launches per kernel, counted by each wrapper right after its kernel was
@@ -82,18 +90,49 @@ def _causal_first_q_tile(ki, bq: int, bk: int):
     return (ki * bk) // bq
 
 
+# The window's tile bounds (the CUDA kernels' window_first_k_tile and
+# window_last_q_tile).
+
+
+def _window_first_k_tile(q0: int, window: int, bk: int) -> int:
+    """The first k tile holding a key that a query of the q tile starting at
+    q0 sees through ``window`` keys."""
+    return max(0, q0 - window + 1) // bk
+
+
+def _window_last_q_tile(k_last: int, window: int, bq: int) -> int:
+    """The last q tile holding a query that sees a key of the k tile whose
+    last row is ``k_last`` through ``window`` keys."""
+    return (k_last + window - 1) // bq
+
+
+def _check_window(causal: bool, window: int) -> None:
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window={window}: a window is 0 (none) or positive, on top of "
+                         "the causal mask")
+
+
+def _visible(q_idx, k_idx, window: int):
+    """[Tq, Tk] mask of the causal (query, key) pairs, within ``window`` keys
+    when it is above 0."""
+    d = q_idx[:, None] - k_idx[None, :]
+    return (d >= 0) & (d < window) if window else d >= 0
+
+
 # ---------------------------------------------------------------------------
 # plain versions: the same functions in f32, with the kernels' rounding points
 # ---------------------------------------------------------------------------
 
 
 def flash_fwd_plain(
-    q, k, v, causal: bool, scale: float, block_q: int = BLOCK_Q, block_k: int = BLOCK_K
+    q, k, v, causal: bool, scale: float, block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
+    window: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1's plain version. q [B,H,T,D], k/v [B,Hkv,T,D] → (o [B,H,T,D] in
     q's dtype, lse [B,H,T] f32). Walks the kernel's tiles: per q tile, an
-    online softmax over the k tiles up to the causal bound, P rounded to
-    v's dtype before P·V, fully masked rows emitting 0."""
+    online softmax over the k tiles from the window's first to the causal
+    bound, P rounded to v's dtype before P·V, fully masked rows emitting 0."""
+    _check_window(causal, window)
     b, h, t, d = q.shape
     h_kv = k.shape[1]
     g = h // h_kv
@@ -111,13 +150,14 @@ def flash_fwd_plain(
         l = torch.zeros_like(m)
         acc = torch.zeros(b, h_kv, g, rows, d, device=q.device)
         k_end = min(n_kb, _causal_last_k_tile(qi, block_q, block_k) + 1) if causal else n_kb
-        for ki in range(k_end):
+        k_first = _window_first_k_tile(q0, window, block_k) if window else 0
+        for ki in range(k_first, k_end):
             k0 = ki * block_k
             kb, vb = kf[:, :, k0:k0 + block_k], v[:, :, k0:k0 + block_k]
             s = torch.einsum("bhgqd,bhkd->bhgqk", qb, kb) * scale
             if causal:
                 k_idx = torch.arange(k0, k0 + kb.shape[2], device=q.device)
-                s = torch.where(q_idx[:, None] >= k_idx[None, :], s, _NEG_INF)
+                s = torch.where(_visible(q_idx, k_idx, window), s, _NEG_INF)
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -132,7 +172,7 @@ def flash_fwd_plain(
     return o.reshape(b, h, t, d), lse.reshape(b, h, t)
 
 
-def _bwd_probs(q, k, v, do, lse, delta, causal: bool, scale: float):
+def _bwd_probs(q, k, v, do, lse, delta, causal: bool, scale: float, window: int = 0):
     """P (f32) and dS = P ⊙ (dO·Vᵀ − delta) (f32, not yet rounded), both
     [B,Hkv,g,Tq,Tk] — what K3 recomputes blockwise."""
     b, h, t, d = q.shape
@@ -144,20 +184,21 @@ def _bwd_probs(q, k, v, do, lse, delta, causal: bool, scale: float):
     p = torch.exp(s - lse.reshape(b, h_kv, g, t)[..., None])
     if causal:
         idx = torch.arange(t, device=q.device)
-        p = torch.where(idx[:, None] >= idx[None, :], p, 0.0)
+        p = torch.where(_visible(idx, idx, window), p, 0.0)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", do5, v.float())
     ds = p * (dp - delta.reshape(b, h_kv, g, t)[..., None])
     return p, ds
 
 
-def flash_bwd_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
+def flash_bwd_plain(q, k, v, do, lse, delta, causal: bool, scale: float, window: int = 0):
     """The backward's plain version → (dq, dk, dv): dq = scale · Σ_k
     bf16(dS)·K, dv = Σ bf16(P)ᵀ·dO and dk = scale · Σ bf16(dS)ᵀ·Q, the last
     two summed over q positions and the kv head's q-head group, all in f32."""
+    _check_window(causal, window)
     b, h, t, d = q.shape
     h_kv = k.shape[1]
     g = h // h_kv
-    p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
+    p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale, window)
     q5 = q.reshape(b, h_kv, g, t, d).float()
     do5 = do.reshape(b, h_kv, g, t, d).float()
     ds_k = ds.to(k.dtype).float()  # dS rounded as each product's operand
@@ -176,8 +217,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "flash_fwd_bf16": [_P] * 5 + [_I] * 6 + [_F, _P],
-    "flash_bwd_dkv_bf16": [_P] * 9 + [_I] * 6 + [_F, _P],
+    "flash_fwd_bf16": [_P] * 5 + [_I] * 7 + [_F, _P],
+    "flash_bwd_dkv_bf16": [_P] * 9 + [_I] * 7 + [_F, _P],
     "flash_bwd_dq_bf16": [_P, _P, ctypes.c_longlong, _F, _P],
     "wgmma_probe_bf16": [_P] * 5 + [_I] * 2 + [_P],
 }
@@ -214,7 +255,8 @@ def _operand(x: torch.Tensor, name: str, shape) -> torch.Tensor:
     return x
 
 
-def _dims(q, k, v):
+def _dims(q, k, v, causal: bool = True, window: int = 0):
+    _check_window(causal, window)
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"the CUDA flash kernels take bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}"
@@ -225,6 +267,9 @@ def _dims(q, k, v):
     h_kv = k.shape[1]
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported by the CUDA kernels ({HEAD_DIMS})")
+    if window and d not in WINDOW_HEAD_DIMS:
+        raise ValueError(f"the windowed CUDA kernels are compiled at head_dim "
+                         f"{WINDOW_HEAD_DIMS}, got {d}")
     if h_kv == 0 or h % h_kv:
         raise ValueError(f"H={h} is not a multiple of Hkv={h_kv}")
     if t == 0 or b * h > 65535:  # the grid's second dimension is b*h (b*h_kv for K3)
@@ -238,9 +283,9 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
+def flash_fwd_cuda(q, k, v, causal: bool, scale: float, window: int = 0):
     """Launch K1. Returns (o [B,H,T,D] bf16, lse [B,H,T] f32)."""
-    b, h, h_kv, t, d = _dims(q, k, v)
+    b, h, h_kv, t, d = _dims(q, k, v, causal, window)
     q = _operand(q, "q", (b, h, t, d))
     k = _operand(k, "k", (b, h_kv, t, d))
     v = _operand(v, "v", (b, h_kv, t, d))
@@ -250,15 +295,15 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float):
     with torch.cuda.device(q.device):
         rc = lib.flash_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b, h, h_kv, t, d, int(causal), float(scale), _stream(q.device),
+            b, h, h_kv, t, d, int(causal), int(window), float(scale), _stream(q.device),
         )
     _check_rc(lib, rc, "flash_fwd")
     launches["flash_fwd"] += 1
     return o, lse
 
 
-def _bwd_operands(q, k, v, do, lse, delta):
-    b, h, h_kv, t, d = _dims(q, k, v)
+def _bwd_operands(q, k, v, do, lse, delta, causal: bool, window: int):
+    b, h, h_kv, t, d = _dims(q, k, v, causal, window)
     if do.dtype != q.dtype:
         raise ValueError(f"dO must be {q.dtype}, got {do.dtype}")
     if lse.dtype != torch.float32 or delta.dtype != torch.float32:
@@ -273,19 +318,20 @@ def _bwd_operands(q, k, v, do, lse, delta):
     )
 
 
-def flash_bwd_cuda(q, k, v, do, lse, delta, causal: bool, scale: float):
+def flash_bwd_cuda(q, k, v, do, lse, delta, causal: bool, scale: float, window: int = 0):
     """Launch K3, then the dq pass. Returns (dq [B,H,T,D], dk, dv
     [B,Hkv,T,D]), bf16. K3 adds dq's f32 sum into a zeroed [B,H,T,D]
     accumulator, which lives until the pass has read it."""
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dq_acc, causal, scale)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dq_acc, causal, scale, window)
     return flash_bwd_dq_cuda(dq_acc, scale), dk, dv
 
 
-def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dq_acc, causal: bool, scale: float):
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dq_acc, causal: bool, scale: float,
+                       window: int = 0):
     """Launch K3 alone: returns (dk, dv) [B,Hkv,T,D] bf16 and adds dq's
     unscaled f32 sum into ``dq_acc`` (f32 [B,H,T,D] on the card)."""
-    (b, h, h_kv, t, d), ops = _bwd_operands(q, k, v, do, lse, delta)
+    (b, h, h_kv, t, d), ops = _bwd_operands(q, k, v, do, lse, delta, causal, window)
     if (dq_acc.dtype != torch.float32 or tuple(dq_acc.shape) != (b, h, t, d)
             or dq_acc.device != ops[0].device or not dq_acc.is_contiguous()
             or dq_acc.data_ptr() % 16):
@@ -297,7 +343,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dq_acc, causal: bool, scale: flo
     with torch.cuda.device(dk.device):
         rc = lib.flash_bwd_dkv_bf16(
             *(x.data_ptr() for x in ops), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, h_kv, t, d, int(causal), float(scale), _stream(dk.device),
+            b, h, h_kv, t, d, int(causal), int(window), float(scale), _stream(dk.device),
         )
     _check_rc(lib, rc, "flash_bwd_dkv")
     launches["flash_bwd_dkv"] += 1
@@ -364,53 +410,54 @@ OPS_NAMESPACE = "mpi_operator_tpu_torch"
 @torch.library.custom_op(
     f"{OPS_NAMESPACE}::flash_fwd", mutates_args=(), device_types="cpu",
     schema="(Tensor q, Tensor k, Tensor v, bool causal, float scale, int block_q, "
-           "int block_k) -> (Tensor, Tensor)",
+           "int block_k, int window=0) -> (Tensor, Tensor)",
 )
-def flash_fwd_op(q, k, v, causal, scale, block_q, block_k):
+def flash_fwd_op(q, k, v, causal, scale, block_q, block_k, window=0):
     """K1 → (o, lse); on CPU tensors its plain version."""
-    return flash_fwd_plain(q, k, v, causal, scale, block_q=block_q, block_k=block_k)
+    return flash_fwd_plain(q, k, v, causal, scale, block_q=block_q, block_k=block_k,
+                           window=window)
 
 
 @flash_fwd_op.register_kernel("cuda")
-def _flash_fwd_kernel(q, k, v, causal, scale, block_q, block_k):
+def _flash_fwd_kernel(q, k, v, causal, scale, block_q, block_k, window=0):
     if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
         raise ValueError(
             f"the CUDA kernel's tiles are {BLOCK_Q}x{BLOCK_K}; got {block_q}x{block_k}"
         )
-    return flash_fwd_cuda(q, k, v, causal, scale)
+    return flash_fwd_cuda(q, k, v, causal, scale, window)
 
 
 @flash_fwd_op.register_fake
-def _flash_fwd_fake(q, k, v, causal, scale, block_q, block_k):
+def _flash_fwd_fake(q, k, v, causal, scale, block_q, block_k, window=0):
     return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
 
 
 _BWD_ARGS = ("(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, Tensor delta, "
-             "bool causal, float scale)")
+             "bool causal, float scale, int window=0)")
 
 
 @torch.library.custom_op(
     f"{OPS_NAMESPACE}::flash_bwd", mutates_args=(), device_types="cpu",
     schema=f"{_BWD_ARGS} -> (Tensor, Tensor, Tensor)",
 )
-def flash_bwd_op(q, k, v, do, lse, delta, causal, scale):
+def flash_bwd_op(q, k, v, do, lse, delta, causal, scale, window=0):
     """The backward → (dq, dk, dv): K3 and the dq pass; on CPU tensors the
     plain version."""
-    return flash_bwd_plain(q, k, v, do, lse, delta, causal, scale)
+    return flash_bwd_plain(q, k, v, do, lse, delta, causal, scale, window)
 
 
 flash_bwd_op.register_kernel("cuda")(flash_bwd_cuda)
 
 
 @flash_bwd_op.register_fake
-def _flash_bwd_fake(q, k, v, do, lse, delta, causal, scale):
+def _flash_bwd_fake(q, k, v, do, lse, delta, causal, scale, window=0):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 def _flash_setup(ctx, inputs, output):
-    q, k, v, causal, scale, _, _ = inputs
+    q, k, v, causal, scale, _, _, window = inputs
     ctx.save_for_backward(q, k, v, *output)
-    ctx.causal, ctx.scale = causal, scale
+    ctx.causal, ctx.scale, ctx.window = causal, scale, window
 
 
 def _flash_backward(ctx, do, _dlse):
@@ -418,8 +465,8 @@ def _flash_backward(ctx, do, _dlse):
     outside the kernels, then one backward call."""
     q, k, v, o, lse = ctx.saved_tensors
     delta = (do.float() * o.float()).sum(-1)
-    dq, dk, dv = flash_bwd_op(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
-    return dq, dk, dv, None, None, None, None
+    dq, dk, dv = flash_bwd_op(q, k, v, do, lse, delta, ctx.causal, ctx.scale, ctx.window)
+    return dq, dk, dv, None, None, None, None, None
 
 
 flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
@@ -431,12 +478,13 @@ def _check_device(x: torch.Tensor) -> None:
 
 
 def flash_fwd(
-    q, k, v, *, causal: bool, scale: float, block_q: int = BLOCK_Q, block_k: int = BLOCK_K
+    q, k, v, *, causal: bool, scale: float, block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
+    window: int = 0,
 ):
     """K1 on CUDA tensors, its plain version on CPU tensors; differentiable
     (``flash_bwd_op`` in the backward). Returns (o, lse)."""
     _check_device(q)
-    return flash_fwd_op(q, k, v, causal, float(scale), block_q, block_k)
+    return flash_fwd_op(q, k, v, causal, float(scale), block_q, block_k, int(window))
 
 
 def _check_local_heads(mesh, h: int, h_kv: int) -> None:
@@ -468,9 +516,12 @@ def flash_attention(
     block_k: int = BLOCK_K,
     mesh=None,
     layout: str = "bthd",
+    window: int = 0,
 ):
     """Flash attention in model layout q [B,T,H,D], k/v [B,T,Hkv,D] or, with
     ``layout="bhtd"``, in the kernels' heads-major layout. Differentiable.
+    ``window`` (with ``causal``): each query sees its last ``window`` keys,
+    itself included; 0 is none.
 
     CUDA tensors run the kernels; K1's tiles are compiled at ``BLOCK_Q`` ×
     ``BLOCK_K``, and a different ``block_q``/``block_k`` raises there. CPU
@@ -488,7 +539,8 @@ def flash_attention(
         scale = q.shape[-1] ** -0.5
     if layout == "bthd":
         q, k, v = (x.transpose(1, 2) for x in (q, k, v))
-    o, _ = flash_fwd(q, k, v, causal=causal, scale=scale, block_q=block_q, block_k=block_k)
+    o, _ = flash_fwd(q, k, v, causal=causal, scale=scale, block_q=block_q, block_k=block_k,
+                     window=window)
     return o if layout == "bhtd" else o.transpose(1, 2)
 
 

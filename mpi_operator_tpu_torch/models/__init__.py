@@ -6,9 +6,15 @@ module has ``Config``, ``init(config, generator, device)``, ``apply``,
 ``loss_fn(model, batch)``, ``logical_axes`` and ``params_from_jax``; its
 ``nn.Module`` speaks parallel/sharding.py's protocol (``logical_axes``,
 ``fsdp_units``, ``set_parallel``).
+
+One family is the port's own, with no JAX twin: afmoe (Arcee's Trinity
+models: gated attention, windowed and global, over a dropless top-k MoE
+with a shared expert). It has ``Config``, ``init``, ``apply`` and the
+sharding protocol, trains through ``llama.loss_fn``, and its model's
+``after_update`` moves the experts' balancing bias after each update.
 """
 
-from mpi_operator_tpu_torch.models import llama, mnist, resnet
+from mpi_operator_tpu_torch.models import afmoe, llama, mnist, resnet
 
 # name → (module, config factory); the factory bakes in the depth/preset so
 # registry users can't get a module whose default Config contradicts the name
@@ -18,6 +24,10 @@ MODELS = {
     "resnet101": (resnet, lambda: resnet.Config(depth="resnet101")),
     "llama3-8b": (llama, llama.llama3_8b),
     "llama-tiny": (llama, llama.tiny),
+    "trinity-mini": (afmoe, afmoe.trinity_mini),
+    "afmoe-tiny": (afmoe, afmoe.tiny),
 }
+# the names above that the JAX package's registry does not have
+PORT_ONLY = ("trinity-mini", "afmoe-tiny")
 
-__all__ = ["mnist", "resnet", "llama", "MODELS"]
+__all__ = ["afmoe", "mnist", "resnet", "llama", "MODELS", "PORT_ONLY"]

@@ -57,7 +57,12 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial
 from torch.utils.checkpoint import checkpoint
 
-from mpi_operator_tpu_torch.runtime.stepstats import device_mark, load_device_marks, span
+from mpi_operator_tpu_torch.runtime.stepstats import (
+    count_step,
+    device_mark,
+    load_device_marks,
+    span,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,7 +248,9 @@ class Trainer:
 
         The step is the span ``trainer.step``, holding ``trainer.forward``,
         ``trainer.backward`` and ``trainer.optimizer`` (the all-reduces, then
-        ``trainer.clip`` and ``trainer.update``). During a capture on a CUDA
+        ``trainer.clip``, ``trainer.update`` and, for a model that defines
+        ``after_update()`` (AFMoE's expert bias), ``trainer.balance``, which
+        calls it after the update). During a capture on a CUDA
         device it also launches four device marks in stream order: ``fwd``
         before the forward, ``bwd`` before the backward, ``opt`` after the
         backward and ``end`` after the update (runtime/stepstats.py)."""
@@ -283,7 +290,12 @@ class Trainer:
                         self._sgd(params, grads, state.opt_state, lr)
                 for p in params.values():
                     p.grad = None
+                after_update = getattr(model, "after_update", None)
+                if after_update is not None:
+                    with span("trainer.balance"):
+                        after_update()
             device_mark(self._mark_device, "end")
+        count_step()
         state.step += 1
         return state, metrics
 

@@ -227,6 +227,7 @@ def ring_attention(
     causal: bool = True,
     scale: Optional[float] = None,
     layout: str = "bthd",
+    window: int = 0,
 ):
     """Exact attention with T split over ``axis_name``: q, k, v are this
     rank's block (q [B,T/N,H,D], k/v [B,T/N,Hkv,D], or heads-major with
@@ -236,9 +237,12 @@ def ring_attention(
     ``axis_name`` axis). Without that axis, or at size 1, attention is
     local: ``flash_attention``, as the JAX ring goes to its chunked
     reference. CUDA tensors run the kernels (bf16), CPU tensors their plain
-    versions."""
+    versions. The ring has no sliding window: a ``window`` raises
+    ``ValueError``."""
     if layout not in ("bthd", "bhtd"):
         raise ValueError(f"layout={layout!r}; expected bthd|bhtd")
+    if window:
+        raise ValueError(f"ring attention has no sliding window (window={window})")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     group = axis_group(mesh, axis_name) if hasattr(mesh, "mesh_dim_names") else mesh

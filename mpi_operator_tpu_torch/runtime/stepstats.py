@@ -34,6 +34,10 @@ host timeline, on the kernels' clock, and its host seconds add up in
 ``tpujob_span_mark_<point>`` (``kernels/csrc/span_mark.cu``), launched on
 the current stream during a capture, so the device trace shows when the
 stream reached that point of the step.
+:func:`count` is a span's counter: during a capture it adds a device
+tensor into a running total on the device (no host sync), and
+:func:`counter_totals` reads the totals with the number of train steps they
+cover (:func:`count_step`, which ``Trainer.train_step`` calls).
 """
 
 from __future__ import annotations
@@ -162,6 +166,54 @@ def span_totals() -> Dict[str, Dict[str, float]]:
 
 def reset_span_totals() -> None:
     _span_totals.clear()
+
+
+# counter name -> running total (a device tensor); steps counted meanwhile.
+# Like the span totals they outlive the session that counted them.
+_counters: Dict[str, torch.Tensor] = {}
+_counter_steps = 0
+
+
+def counting() -> bool:
+    """Whether :func:`count` counts now (a capture runs on this thread):
+    callers skip computing what it would drop."""
+    return _profiler_enabled()
+
+
+def count(name: str, value: torch.Tensor) -> None:
+    """During a capture on the calling thread, add ``value`` (a tensor of
+    a fixed shape per name) into the total of counter ``name``, on its
+    device and without a host sync; nothing otherwise."""
+    if not _profiler_enabled():
+        return
+    total = _counters.get(name)
+    if total is None:
+        _counters[name] = value.detach().double().clone()
+    else:
+        total.add_(value.detach())
+
+
+def count_step() -> None:
+    """One train step ran: counted during a capture, as the counters are."""
+    global _counter_steps
+    if _profiler_enabled():
+        _counter_steps += 1
+
+
+def counter_totals() -> Dict[str, Any]:
+    """``{"steps": train steps counted, "counters": {name: total}}`` since
+    :func:`reset_counters`; a total is a float, or a list for a counter of
+    several values. Reads the device (a sync)."""
+    out = {}
+    for name, t in _counters.items():
+        out[name] = t.item() if t.dim() == 0 else t.tolist()
+    return {"steps": _counter_steps, "counters": out}
+
+
+def reset_counters() -> None:
+    global _counter_steps
+    _counters.clear()
+    _counter_steps = 0
 
 
 MARK_KERNEL = "tpujob_span_mark"  # the marks' kernels: MARK_KERNEL + "_" + point
