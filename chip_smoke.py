@@ -36,7 +36,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the last within 1e-3 of 0.12508 (dq's sum order parts runs: nine read
    0.124855-0.125303), and each kernel launches once per layer per step (84
    in 7 steps): the per-layer remat saves K1's outputs instead of running
-   K1 again;
+   K1 again; K-norm, its finish and K-adamw (``kernels/optim.py``) launch
+   once a step each (7), zeroed with the others;
 6. gang path: the worker as the operator runs it
    (``python -m mpi_operator_tpu_torch.workers.llama_worker``, one process
    per incarnation), ``bench_single_chip()`` at seq 2048, batch 4, on a
@@ -130,9 +131,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
    vocabulary 25,024, B 4, T 8192, per-layer remat) through
    ``Trainer.train_step``, after one warm-up step, with ``launches`` zeroed
    just before it and the device traced: 6 launches of K1, K3 and the dq
-   pass each, of which 5 of K1 and 5 of K3 are the windowed instances, and
+   pass each, of which 5 of K1 and 5 of K3 are the windowed instances,
    48 grouped expert products (4 MoE layers x 3 products x the forward,
-   the remat's recompute and the backward's two).
+   the remat's recompute and the backward's two), and one launch of
+   K-norm, its finish and K-adamw each, counted and in the trace.
+20. the optimizer phase over the leaves of the benchmark's
+   ``trinity-mini-l6`` and ``mistral-7b-l8`` (f32 parameters, gradients of
+   norm 4 against max_norm 1, a bf16 first moment, weight decay 0.1): the
+   clip and AdamW through K-norm and K-adamw (``kernels/optim.py``) and
+   through the plain code (the sum of squares a leaf at a time,
+   ``scale_by_clip_`` and ``Trainer._adamw``): K-norm's norm within 1e-6
+   relative of the plain one; one step of each path, the plain norm given
+   to both, on copies of one leaf of each shape, p, mu and nu bit for bit
+   equal; K-norm, its finish and K-adamw launched as often as planned; both
+   paths timed; K-norm and K-adamw
+   alone beside their bound (4 and 24 bytes a parameter over the HBM
+   rate); ``torch._fused_adamw_`` (f32 moments, no clip: the yardstick,
+   never on the port's path) as ``library_ms``; the kernels' registers and
+   spill bytes from ptxas.
 
 The line before the last is a JSON object with one entry per kernel (its
 registers and spill bytes per head dim from ptxas, from phase 7 its
@@ -592,13 +608,16 @@ def phase_main(smi: str) -> tuple:
     the first loss."""
     from mpi_operator_tpu_torch import bench
     from mpi_operator_tpu_torch.kernels import flash_attention as fa
+    from mpi_operator_tpu_torch.kernels import optim
 
     seq_len, batch, warmup, steps = 2048, 4, 2, 5
     fa.reset_launches()
+    optim.reset_launches()
     rec = bench.bench_llama(
         seq_len=seq_len, per_chip_batch=batch, steps=steps, warmup=warmup, device="cuda"
     )
     launches = dict(fa.launches)
+    optim_launches = dict(optim.launches)
     losses = rec["losses"]
     log(f"[main] bench_single_chip: {rec['params']} params, batch {batch}, seq {seq_len}, "
         f"flash_kernel_max_err {rec['flash_kernel_max_err']:.3e}")
@@ -607,7 +626,8 @@ def phase_main(smi: str) -> tuple:
     log(f"[main] tokens/s {rec['value']:.1f}, step_ms {rec['step_ms']:.2f}, "
         f"mfu {rec['mfu']:.4f}, setup_s {rec['setup_s']:.2f}, warmup_s {rec['warmup_s']:.2f}, "
         f"max_memory_allocated {rec['max_memory_allocated']} [{smi}]")
-    log(f"[main] kernel launches in {warmup + steps} steps: {launches}")
+    log(f"[main] kernel launches in {warmup + steps} steps: {launches}, optimizer "
+        f"{optim_launches}")
     if len(losses) != warmup + steps:
         fail(f"expected {warmup + steps} losses, got {len(losses)}")
     if not all(math.isfinite(x) for x in losses):
@@ -619,6 +639,10 @@ def phase_main(smi: str) -> tuple:
     want = 12 * (warmup + steps)  # bench_single_chip's 12 layers, once per step each
     if launches != {name: want for name in REPLACES}:
         fail(f"expected {want} launches of each kernel on the main path, got {launches}")
+    # the optimizer's kernels: K-norm, its finish and K-adamw once a step
+    if optim_launches != {name: warmup + steps for name in optim.launches}:
+        fail(f"expected {warmup + steps} launches of each optimizer kernel on the main path, "
+             f"got {optim_launches}")
     return launches, losses[0]
 
 
@@ -989,6 +1013,7 @@ def phase_trinity_step(smi: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from mpi_operator_tpu_torch.kernels import flash_attention as fa
+    from mpi_operator_tpu_torch.kernels import optim
     from mpi_operator_tpu_torch.models import MODELS, llama
     from mpi_operator_tpu_torch.ops.data import make_global_batch
     from mpi_operator_tpu_torch.ops.trainer import Trainer, TrainerConfig
@@ -1007,12 +1032,14 @@ def phase_trinity_step(smi: str) -> dict:
     state, _ = trainer.train_step(state, batch)  # warm-up: every shape built
     torch.cuda.synchronize()
     fa.reset_launches()
+    optim.reset_launches()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, metrics = trainer.train_step(state, batch)
         torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0)
     launches = dict(fa.launches)
+    optim_launches = dict(optim.launches)
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     counts = {
         "flash_fwd windowed": sum("flash_fwd_kernel<128, 1>" in x for x in names),
@@ -1020,21 +1047,162 @@ def phase_trinity_step(smi: str) -> dict:
         "flash_bwd_dkv windowed": sum("flash_bwd_dkv_kernel<128, 1>" in x for x in names),
         "flash_bwd_dkv causal": sum("flash_bwd_dkv_kernel<128, 0>" in x for x in names),
         "grouped products": sum("GroupProblemShape" in x for x in names),
+        "sumsq_kernel": sum("sumsq_kernel" in x for x in names),
+        "sumsq_finish_kernel": sum("sumsq_finish_kernel" in x for x in names),
+        "adamw_kernel": sum("adamw_kernel" in x for x in names),
     }
     loss = float(metrics["loss"])
     log(f"[trinity] one step at B {n['batch']} T {n['seq']}, {n['n_layers']} layers, vocab "
-        f"{n['vocab']}: {step_ms:.1f} ms (traced), loss {loss:.4f}; launches {launches}; "
-        f"device kernels {counts} [{smi}]")
+        f"{n['vocab']}: {step_ms:.1f} ms (traced), loss {loss:.4f}; launches {launches}, "
+        f"optimizer {optim_launches}; device kernels {counts} [{smi}]")
     del state, model, trainer, batch, metrics, prof
     torch.cuda.empty_cache()
     if launches != {name: n["n_layers"] for name in REPLACES}:
         fail(f"expected {n['n_layers']} launches of each kernel in a Trinity step: {launches}")
+    if optim_launches != {name: 1 for name in optim.launches}:
+        fail(f"expected one launch of each optimizer kernel in a Trinity step: "
+             f"{optim_launches}")
     want = {"flash_fwd windowed": 5, "flash_fwd causal": 1, "flash_bwd_dkv windowed": 5,
-            "flash_bwd_dkv causal": 1, "grouped products": 48}
+            "flash_bwd_dkv causal": 1, "grouped products": 48, "sumsq_kernel": 1,
+            "sumsq_finish_kernel": 1, "adamw_kernel": 1}
     if counts != want or not math.isfinite(loss):
         fail(f"expected {want} device kernels in a Trinity step and a finite loss: "
              f"{counts}, {loss}")
-    return {"launches": launches, "kernels": counts, "step_ms": step_ms}
+    return {"launches": launches, "optimizer_launches": optim_launches, "kernels": counts,
+            "step_ms": step_ms}
+
+
+OPTIM_CONFIGS = ("trinity-mini-l6", "mistral-7b-l8")
+OPTIM_KERNELS = ("sumsq_kernel", "sumsq_finish_kernel", "adamw_kernel")
+
+
+def phase_optimizer(smi: str) -> dict:
+    """Phase 20: the optimizer phase at the leaves of two of the
+    benchmark's configurations, kernels against the plain code and the
+    library's fused AdamW. Returns per configuration its times, shares of
+    the bound and launches, and the kernels' registers and spills."""
+    from benchmark.families import afmoe, decoder
+    from mpi_operator_tpu_torch.kernels import _build, optim
+    from mpi_operator_tpu_torch.ops.trainer import (Trainer, TrainerConfig, global_norm,
+                                                    scale_by_clip_)
+
+    optim.load()
+    res = _build.kernel_resources(_build.build_log("optim"), OPTIM_KERNELS)
+    for key in ("sumsq_kernel", "sumsq_finish_kernel", "adamw_kernel<0>", "adamw_kernel<1>"):
+        if key not in res:
+            fail(f"ptxas reported nothing for {key}: {sorted(res)}")
+    log(f"[optimizer] ptxas: {json.dumps(res)}")
+    out = {"resources": res}
+    lr, max_norm, count = 3e-4, 1.0, 10
+    trainer = Trainer(lambda m, b: 0.0, TrainerConfig(learning_rate=lr, adam_mu_bf16=True,
+                                                      grad_clip_norm=max_norm,
+                                                      weight_decay=0.1))
+    for cfg_name in OPTIM_CONFIGS:
+        with open(os.path.join("benchmark", "configs", f"{cfg_name}.json")) as f:
+            config = json.load(f)
+        family = afmoe if config["family"] == "afmoe" else decoder
+        shapes = {name: shape for name, shape, _ in family.leaves(config)}
+        n = sum(math.prod(s) for s in shapes.values())
+        gen = torch.Generator(device="cuda").manual_seed(20)
+        params = {k: torch.randn(s, generator=gen, device="cuda") * 0.02
+                  for k, s in shapes.items()}
+        grads = {k: torch.randn(s, generator=gen, device="cuda") * (4.0 / n ** 0.5)
+                 for k, s in shapes.items()}
+        opt = {"mu": {k: (torch.randn(s, generator=gen, device="cuda") * 1e-5).to(torch.bfloat16)
+                      for k, s in shapes.items()},
+               "nu": {k: torch.rand(s, generator=gen, device="cuda") * 1e-10
+                      for k, s in shapes.items()}}
+        g_list = list(grads.values())
+        with torch.no_grad():
+            k_norm = global_norm(g_list)
+            p_norm = torch.sqrt(sum(g.float().pow(2).sum() for g in g_list))
+            if not abs(float(k_norm) - float(p_norm)) <= 1e-6 * float(p_norm):
+                fail(f"{cfg_name}: K-norm's norm {float(k_norm)} against the plain "
+                     f"{float(p_norm)}")
+            # one step of each path on copies of one leaf of each shape (copies
+            # of the whole state would not fit beside it), the plain norm given
+            # to both: p, mu and nu bit for bit equal
+            first = {}
+            for k, s in shapes.items():
+                first.setdefault(tuple(s), k)
+            names = list(first.values())
+
+            def copies():
+                return ({k: params[k].clone() for k in names},
+                        {k: grads[k].clone() for k in names},
+                        {key: {k: opt[key][k].clone() for k in names} for key in opt})
+
+            (kp, kg, kopt), (pp, pg, popt) = copies(), copies()
+            trainer._adamw_kernels(kp, kg, kopt, count, lr, p_norm)
+            scale_by_clip_(list(pg.values()), p_norm, max_norm)
+            trainer._adamw(pp, pg, popt, count, lr)
+            unequal = {what: sum(int((a[k] != b[k]).sum()) for k in names)
+                       for what, a, b in (("p", kp, pp), ("mu", kopt["mu"], popt["mu"]),
+                                          ("nu", kopt["nu"], popt["nu"]))}
+            log(f"[optimizer] {cfg_name}: one step over {len(names)} leaves of every shape, "
+                f"{sum(kp[k].numel() for k in names)} parameters: elements that differ "
+                f"from the plain path {unequal}")
+            if any(unequal.values()):
+                fail(f"{cfg_name}: K-adamw parts from the plain path: {unequal}")
+            del kp, kg, kopt, pp, pg, popt
+
+            def kernels():
+                trainer._adamw_kernels(params, grads, opt, count, lr, global_norm(g_list))
+
+            optim.reset_launches()
+            kernels()
+            launches = dict(optim.launches)
+            want = {"sumsq": len(optim.plan([g.numel() for g in g_list],
+                                            optim._capacity["norm"])),
+                    "sumsq_finish": 1,
+                    "adamw": len(optim.plan([g.numel() for g in g_list],
+                                            optim._capacity["adamw"]))}
+            if launches != want:
+                fail(f"{cfg_name}: planned launches {want}, counted {launches}")
+
+            def plain():
+                norm = torch.sqrt(sum(g.float().pow(2).sum() for g in g_list))
+                scale_by_clip_(g_list, norm, max_norm)
+                trainer._adamw(params, grads, opt, count, lr)
+
+            norm = global_norm(g_list)
+            leaves = {k: (params[k], grads[k], opt["mu"][k], opt["nu"][k]) for k in params}
+            times = {"kernels_ms": _time_ms(kernels),
+                     "k_norm_ms": _time_ms(lambda: optim.sum_squares(g_list)),
+                     "k_adamw_ms": _time_ms(lambda: optim.adamw_(
+                         leaves, norm, max_norm, lr, 0.9, 0.95, 0.65, 0.4, 1e-8, 0.0)),
+                     "plain_ms": _time_ms(plain, reps=3)}
+            del leaves, norm
+            mus = list(opt["mu"].values())
+            opt["mu"] = {}
+            del mus
+            exp_avgs = [torch.zeros_like(p) for p in params.values()]
+            steps = [torch.tensor(10.0, device="cuda") for _ in params]
+            p_list, nu_list = list(params.values()), list(opt["nu"].values())
+
+            def library():
+                torch._fused_adamw_(p_list, g_list, exp_avgs, nu_list, [], steps, lr=lr,
+                                    beta1=0.9, beta2=0.95, weight_decay=0.0, eps=1e-8,
+                                    amsgrad=False, maximize=False)
+
+            times["library_ms"] = _time_ms(library)
+        bound = {"k_norm": 1e3 * 4 * n / HBM_BYTES_PER_S,
+                 "k_adamw": 1e3 * 24 * n / HBM_BYTES_PER_S}
+        bound["kernels"] = bound["k_norm"] + bound["k_adamw"]
+        share = {k: 100 * bound[k] / times[f"{k}_ms"] for k in bound}
+        out[cfg_name] = {"leaves": len(shapes), "parameters": n, "launches": launches,
+                         "norm": float(k_norm), "unequal": unequal, **times,
+                         "bound_ms": bound, "share_of_bound_pct": share}
+        log(f"[optimizer] {cfg_name}: {len(shapes)} leaves, {n} parameters, launches "
+            f"{launches}: kernels {times['kernels_ms']:.3f} ms ({share['kernels']:.1f} % of "
+            f"{bound['kernels']:.3f}), K-norm {times['k_norm_ms']:.3f} ms "
+            f"({share['k_norm']:.1f} %), K-adamw {times['k_adamw_ms']:.3f} ms "
+            f"({share['k_adamw']:.1f} %), plain {times['plain_ms']:.3f} ms, library "
+            f"(torch._fused_adamw_, f32 moments) {times['library_ms']:.3f} ms; norm "
+            f"{float(k_norm):.6f} (plain {float(p_norm):.6f}) [{smi}]")
+        del params, grads, opt, exp_avgs, p_list, nu_list, g_list
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_worker_manifest(smi: str) -> dict:
@@ -1360,7 +1528,9 @@ def main() -> None:
     window = phase_window(smi)
     grouped = phase_grouped(smi)
     phase_trinity_step(smi)
-    log(json.dumps({"library_products": quant, "window": window, "grouped_mm": grouped}))
+    optimizer = phase_optimizer(smi)
+    log(json.dumps({"library_products": quant, "window": window, "grouped_mm": grouped,
+                    "optimizer": optimizer}))
     kernels = [
         {
             "name": name,

@@ -43,6 +43,14 @@ The reported loss is then the global batch's mean, as JAX's replicated
 loss is. The global norm sums the squares of every shard over the mesh
 (each ``fsdp`` and ``tensor`` shard once) and of each replicated tensor
 once, so clipping triggers at the same step as on one device.
+
+On a CUDA device the clip and AdamW run as two hand-written kernels
+(kernels/optim.py), and only so: K-norm sums the gradients' squares, and
+K-adamw applies the clip's factor as it reads each gradient (which stays
+unscaled) and updates p, mu and nu in one pass, with the same arithmetic. A
+leaf whose local tensors they cannot take (f32 parameter and gradient, f32
+or bf16 first moment, f32 second moment, all contiguous) is
+refused. Every CPU tensor takes the plain code below.
 """
 
 from __future__ import annotations
@@ -57,6 +65,8 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial
 from torch.utils.checkpoint import checkpoint
 
+from mpi_operator_tpu_torch.kernels import optim
+from mpi_operator_tpu_torch.runtime import stepstats
 from mpi_operator_tpu_torch.runtime.stepstats import (
     count_step,
     device_mark,
@@ -117,6 +127,20 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+def _on_card(tensors) -> bool:
+    """Whether the optimizer phase over ``tensors`` runs the kernels
+    (kernels/optim.py): they are on a CUDA device."""
+    return any(_local(t).is_cuda for t in tensors)
+
+
+def _sum_squares(tensors) -> torch.Tensor:
+    """The sum of every tensor's squares, in f32: K-norm on the card, a pass
+    a tensor elsewhere."""
+    if _on_card(tensors):
+        return optim.sum_squares(tensors)
+    return sum(t.float().pow(2).sum() for t in tensors)
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares over every tensor, in f32. A DTensor's
     squares are summed over its shards on every rank of its mesh, over the
@@ -125,12 +149,12 @@ def global_norm(tensors) -> torch.Tensor:
     A plain tensor is whole on every rank and counts once."""
     plain = [t for t in tensors if not isinstance(t, DTensor)]
     sharded = [t for t in tensors if isinstance(t, DTensor)]
-    total = sum(t.float().pow(2).sum() for t in plain)
+    total = _sum_squares(plain)
     if sharded:
         like = sharded[0]
         if any(t.device_mesh != like.device_mesh for t in sharded):
             raise ValueError("global_norm takes DTensors of one mesh")
-        local = sum(t.to_local().float().pow(2).sum() for t in sharded)
+        local = _sum_squares([t.to_local() for t in sharded])
         placements = [Partial() if p.is_shard() else p for p in like.placements]
         total = total + DTensor.from_local(local, like.device_mesh, placements).full_tensor()
     return torch.sqrt(total)
@@ -179,10 +203,16 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     ``g / norm * max_norm`` where ``norm >= max_norm`` and stays as it is
     below. Returns the norm before clipping."""
     norm = global_norm(grads)
+    scale_by_clip_(grads, norm, max_norm)
+    return norm
+
+
+def scale_by_clip_(grads, norm: torch.Tensor, max_norm: float) -> None:
+    """The clip's scale, in place, given ``norm``, the norm before clipping:
+    each gradient times ``max_norm / norm`` where ``norm >= max_norm``."""
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         _local(g).mul_(factor)
-    return norm
 
 
 class Trainer:
@@ -229,6 +259,8 @@ class Trainer:
         if params:
             device = _local(next(iter(params.values()))).device
             self._mark_device = device if load_device_marks(device) else None
+            if device.type == "cuda" and (c.optimizer == "adamw" or c.grad_clip_norm > 0):
+                optim.load()  # set-up's build, so that no step builds it
 
         def zeros(dtype=None):
             return {n: torch.zeros_like(p, dtype=dtype) for n, p in params.items()}
@@ -253,7 +285,9 @@ class Trainer:
         calls it after the update). During a capture on a CUDA
         device it also launches four device marks in stream order: ``fwd``
         before the forward, ``bwd`` before the backward, ``opt`` after the
-        backward and ``end`` after the update (runtime/stepstats.py)."""
+        backward and ``end`` after the update (runtime/stepstats.py), and
+        counts the elements AdamW updated through K-adamw and through the
+        plain code (``trainer.update.fused``, ``trainer.update.plain``)."""
         c = self.config
         model = state.params
         params = dict(model.named_parameters())
@@ -278,16 +312,32 @@ class Trainer:
                     for p in self._replicated:
                         _pmean_(p.grad)
                 grads = {n: p.grad for n, p in params.items()}
+                # on the card K-adamw scales each gradient as it reads it, so
+                # the clip there only takes the norm
+                kernels = c.optimizer == "adamw" and _on_card(params.values())
+                norm = None
                 if c.grad_clip_norm > 0:
                     with span("trainer.clip"):
-                        metrics["grad_norm"] = clip_by_global_norm_(list(grads.values()),
-                                                                    c.grad_clip_norm)
+                        grad_list = list(grads.values())
+                        norm = (global_norm(grad_list) if kernels
+                                else clip_by_global_norm_(grad_list, c.grad_clip_norm))
+                        metrics["grad_norm"] = norm
                 lr = learning_rate(c, state.step)
                 with span("trainer.update"):
-                    if c.optimizer == "adamw":
+                    if kernels:
+                        self._adamw_kernels(params, grads, state.opt_state, state.step + 1, lr,
+                                            norm)
+                    elif c.optimizer == "adamw":
                         self._adamw(params, grads, state.opt_state, state.step + 1, lr)
                     else:
                         self._sgd(params, grads, state.opt_state, lr)
+                    if c.optimizer == "adamw" and stepstats.counting():
+                        # counts the host knows: CPU totals, no copy to the device
+                        n = float(sum(_local(p).numel() for p in params.values()))
+                        for path, taken in (("fused", kernels), ("plain", not kernels)):
+                            stepstats.count(f"trainer.update.{path}",
+                                            torch.tensor(n if taken else 0.0,
+                                                         dtype=torch.float64))
                 for p in params.values():
                     p.grad = None
                 after_update = getattr(model, "after_update", None)
@@ -307,7 +357,23 @@ class Trainer:
             state, metrics = self.train_step(state, batch)
         return state, metrics
 
+    def _adamw_kernels(self, params, grads, opt, count: int, lr: float, norm):
+        """K-adamw over every leaf (kernels/optim.py): ``_adamw``'s update,
+        the clip's factor from ``norm`` (the norm before clipping; None: no
+        clip) applied to each gradient as it is read, the gradient itself
+        left unscaled. Refuses, with a ``ValueError``, a leaf whose local
+        tensors it cannot take."""
+        c = self.config
+        leaves = {name: tuple(_local(t) for t in (p, grads[name], opt["mu"][name],
+                                                  opt["nu"][name]))
+                  for name, p in params.items()}
+        optim.adamw_(leaves, norm, c.grad_clip_norm, lr, c.beta1, c.beta2,
+                     1.0 - c.beta1 ** count, 1.0 - c.beta2 ** count, 1e-8, c.weight_decay)
+
     def _adamw(self, params, grads, opt, count: int, lr: float):
+        """AdamW in plain PyTorch on any device, the gradients already
+        clipped: the CPU's update, and what K-adamw is held to on the card
+        (tests/test_torch_cuda_kernels.py, chip_smoke.py)."""
         c = self.config
         bc1 = 1.0 - c.beta1 ** count
         bc2 = 1.0 - c.beta2 ** count

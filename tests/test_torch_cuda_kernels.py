@@ -291,3 +291,184 @@ def test_remat_launches_k1_once_per_layer_on_the_card():
         assert tfa.launches == {"flash_fwd": 3, "flash_bwd_dq": 3, "flash_bwd_dkv": 3}
         grads.append([p.grad for p in model.parameters()])
     assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+# ---------------------------------------------------------------------------
+# the optimizer phase: K-norm and K-adamw (csrc/optim.cu) against the plain
+# clip_by_global_norm_ and Trainer._adamw on the same card
+# ---------------------------------------------------------------------------
+
+OPT_SIZES = (1, 7, 4099, 2 ** 20 + 3)
+OPT_LR = 1e-2  # large, so that the update moves p by as much as p's own size
+
+
+def _ulp(x, dtype):
+    """One ulp of ``dtype`` at |x|, elementwise (f32 values)."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                       e - (24 if dtype == torch.float32 else 8))
+
+
+def _assert_ulps(got, want, scale, n, what):
+    """|got - want| within n ulps of got's dtype at ``scale`` (the largest
+    operand of the last rounding: a difference that a sum cancels is still
+    a difference at the operands' size)."""
+    err = (got.float() - want.float()).abs()
+    tol = n * _ulp(torch.maximum(scale.float().abs(), want.float().abs()), got.dtype)
+    worst = float((err / tol).max())
+    assert worst <= 1.0, f"{what}: {worst * n:.2f} ulps"
+
+
+def _opt_state(mu_bf16, seed=0):
+    """name -> p for every OPT_SIZES leaf and a leaf whose p, g, mu and nu
+    are views one element past a 16-byte boundary; zero moments."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mu_dtype = torch.bfloat16 if mu_bf16 else torch.float32
+    params, mu, nu = {}, {}, {}
+    for n in OPT_SIZES:
+        name = f"leaf{n}"
+        params[name] = torch.randn(n, generator=gen, device="cuda") * 0.02
+        mu[name] = torch.zeros(n, dtype=mu_dtype, device="cuda")
+        nu[name] = torch.zeros(n, device="cuda")
+    params["view"] = (torch.randn(4100, generator=gen, device="cuda") * 0.02)[1:]
+    mu["view"] = torch.zeros(4100, dtype=mu_dtype, device="cuda")[1:]
+    nu["view"] = torch.zeros(4100, device="cuda")[1:]
+    return params, {"mu": mu, "nu": nu}
+
+
+def _opt_grads(params, step, target):
+    """Gradients for ``step`` whose global norm is about ``target``."""
+    gen = torch.Generator(device="cuda").manual_seed(100 + step)
+    total = sum(p.numel() for p in params.values())
+    grads = {}
+    for name, p in params.items():
+        g = torch.randn(p.numel() + 1, generator=gen, device="cuda") * (target / total ** 0.5)
+        grads[name] = g[1:] if name == "view" else g[:-1]
+    return grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("target", [0.5, 4.0], ids=["below", "above"])
+@pytest.mark.parametrize("wd", [0.0, 0.1])
+@pytest.mark.parametrize("mu_bf16", [True, False])
+def test_optimizer_kernels_match_plain(mu_bf16, wd, target):
+    """Three steps of the clip (max_norm 1, the norm below or above it) and
+    AdamW through K-norm and K-adamw against the plain code on the card:
+    leaves of 1, 7, 4099 and 2**20 + 3 elements (tails past the last
+    16-byte vector, a leaf of 33 chunks) and one one element past a 16-byte
+    boundary (the element path). K-norm's norm (``global_norm`` on the
+    card) within 1e-6 relative of the plain sum of squares. Both updates
+    then take the plain norm, so that the two paths part only where their
+    arithmetic does: ``Trainer._adamw_kernels`` against the plain
+    ``Trainer._adamw`` after ``scale_by_clip_``, p and nu within 4 f32 ulps, mu
+    within one ulp of its dtype, at the size of the operands of their last
+    rounding; the kernels leave g as it was."""
+    from mpi_operator_tpu_torch.ops.trainer import (Trainer, TrainerConfig, global_norm,
+                                                    scale_by_clip_)
+
+    _need_card()
+    trainer = Trainer(lambda m, b: 0.0, TrainerConfig(learning_rate=OPT_LR, weight_decay=wd,
+                                                      adam_mu_bf16=mu_bf16))
+    kp, kopt = _opt_state(mu_bf16)
+    pp, popt = _opt_state(mu_bf16)
+    for step in range(3):
+        before = {n: (pp[n].clone(), popt["mu"][n].float() * trainer.config.beta1)
+                  for n in pp}
+        kg, pg = _opt_grads(kp, step, target), _opt_grads(pp, step, target)
+        kept = {n: g.clone() for n, g in kg.items()}
+        knorm = global_norm(list(kg.values()))
+        pnorm = torch.sqrt(sum(g.float().pow(2).sum() for g in pg.values()))
+        scale_by_clip_(list(pg.values()), pnorm, 1.0)
+        trainer._adamw(pp, pg, popt, step + 1, OPT_LR)
+        trainer._adamw_kernels(kp, kg, kopt, step + 1, OPT_LR, pnorm)
+        assert (float(pnorm) < 1.0) == (target < 1.0)
+        np.testing.assert_allclose(float(knorm), float(pnorm), rtol=1e-6)
+        for n in kp:
+            assert torch.equal(kg[n], kept[n]), f"{n}: K-adamw wrote g"
+            p0, mb = before[n]
+            _assert_ulps(kp[n], pp[n], torch.maximum(p0.abs(), pp[n].abs()), 4,
+                         f"p of {n}, step {step}")
+            _assert_ulps(kopt["nu"][n], popt["nu"][n], popt["nu"][n], 4,
+                         f"nu of {n}, step {step}")
+            g_scale = (1 - trainer.config.beta1) * pg[n].abs()
+            _assert_ulps(kopt["mu"][n], popt["mu"][n], torch.maximum(mb.abs(), g_scale), 1,
+                         f"mu of {n}, step {step}")
+
+
+@pytest.mark.cuda
+def test_optimizer_kernels_refuse_split_launches_and_count(monkeypatch):
+    """K-adamw refuses a leaf stored column-major or strided (every other
+    element of a buffer) before writing anything. With two leaves a launch
+    the results
+    are bitwise those of one launch, in as many launches as planned. A
+    captured train step of a small Llama on the card launches K-norm, its
+    finish and K-adamw once each and counts every element as K-adamw's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpi_operator_tpu_torch.kernels import optim
+    from mpi_operator_tpu_torch.models import llama
+    from mpi_operator_tpu_torch.ops.data import make_global_batch
+    from mpi_operator_tpu_torch.ops.trainer import Trainer, TrainerConfig, global_norm
+    from mpi_operator_tpu_torch.runtime import stepstats
+
+    _need_card()
+    trainer = Trainer(lambda m, b: 0.0, TrainerConfig(learning_rate=OPT_LR, adam_mu_bf16=True))
+
+    def leaves(bad=None):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        params = {"vector": torch.randn(4099, generator=gen, device="cuda"),
+                  "matrix": torch.randn(33, 64, generator=gen, device="cuda"),
+                  "big": torch.randn(3 * optim.CHUNK + 5, generator=gen, device="cuda")}
+        if bad == "colmajor":
+            params[bad] = torch.randn(33, 64, generator=gen, device="cuda").t()
+        elif bad == "strided":
+            params[bad] = torch.randn(1026, generator=gen, device="cuda")[::2]
+        opt = {"mu": {n: torch.zeros_like(p, dtype=torch.bfloat16) for n, p in params.items()},
+               "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
+        grads = {n: torch.randn(p.shape, generator=gen, device="cuda") for n, p in params.items()}
+        return params, grads, opt
+
+    for bad in ("colmajor", "strided"):
+        params, grads, opt = leaves(bad)
+        norm = torch.ones((), device="cuda")
+        kept = {n: p.clone() for n, p in params.items()}
+        with pytest.raises(ValueError, match=f"K-adamw cannot take leaf {bad}"):
+            trainer._adamw_kernels(params, grads, opt, 1, OPT_LR, norm)
+        assert all(torch.equal(params[n], kept[n]) for n in params)
+
+    def run():
+        params, grads, opt = leaves()
+        optim.reset_launches()
+        norm = global_norm(list(grads.values()))
+        trainer._adamw_kernels(params, grads, opt, 1, OPT_LR, norm)
+        return norm, params, opt, dict(optim.launches)
+
+    norm, params, opt, launches = run()
+    assert launches == {"sumsq": 1, "sumsq_finish": 1, "adamw": 1}
+    monkeypatch.setitem(optim._capacity, "norm", 2)
+    monkeypatch.setitem(optim._capacity, "adamw", 2)
+    norm2, params2, opt2, launches2 = run()
+    assert launches2 == {"sumsq": 2, "sumsq_finish": 1, "adamw": 2}
+    assert torch.equal(norm, norm2)
+    for n in params:
+        assert torch.equal(params[n], params2[n]), n
+        assert torch.equal(opt["mu"][n], opt2["mu"][n]) and torch.equal(opt["nu"][n],
+                                                                        opt2["nu"][n]), n
+    monkeypatch.undo()
+
+    model = llama.init(llama.tiny(), torch.Generator(device="cuda").manual_seed(0), "cuda")
+    step_trainer = Trainer(llama.loss_fn, TrainerConfig(learning_rate=1e-3, adam_mu_bf16=True))
+    state = step_trainer.init_state(model)
+    tokens = np.random.default_rng(0).integers(0, 256, (2, 32)).astype(np.int32)
+    batch = make_global_batch({"tokens": tokens}, "cuda")
+    optim.reset_launches()
+    stepstats.reset_counters()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            step_trainer.train_step(state, batch)
+        counters = stepstats.counter_totals()["counters"]
+    finally:
+        stepstats.reset_counters()
+    n = sum(p.numel() for p in model.parameters())
+    assert optim.launches == {"sumsq": 1, "sumsq_finish": 1, "adamw": 1}
+    assert counters == {"trainer.update.fused": float(n), "trainer.update.plain": 0.0}
