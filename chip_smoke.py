@@ -139,8 +139,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``trinity-mini-l6`` and ``mistral-7b-l8`` (f32 parameters, gradients of
    norm 4 against max_norm 1, a bf16 first moment, weight decay 0.1): the
    clip and AdamW through K-norm and K-adamw (``kernels/optim.py``) and
-   through the plain code (the sum of squares a leaf at a time,
-   ``scale_by_clip_`` and ``Trainer._adamw``): K-norm's norm within 1e-6
+   through their plain versions on the card (``sum_squares_plain``, a pass
+   a leaf, and ``adamw_plain_``): K-norm's norm within 1e-6
    relative of the plain one; one step of each path, the plain norm given
    to both, on copies of one leaf of each shape, p, mu and nu bit for bit
    equal; K-norm, its finish and K-adamw launched as often as planned; both
@@ -1083,8 +1083,7 @@ def phase_optimizer(smi: str) -> dict:
     the bound and launches, and the kernels' registers and spills."""
     from benchmark.families import afmoe, decoder
     from mpi_operator_tpu_torch.kernels import _build, optim
-    from mpi_operator_tpu_torch.ops.trainer import (Trainer, TrainerConfig, global_norm,
-                                                    scale_by_clip_)
+    from mpi_operator_tpu_torch.ops.trainer import global_norm
 
     optim.load()
     res = _build.kernel_resources(_build.build_log("optim"), OPTIM_KERNELS)
@@ -1093,10 +1092,12 @@ def phase_optimizer(smi: str) -> dict:
             fail(f"ptxas reported nothing for {key}: {sorted(res)}")
     log(f"[optimizer] ptxas: {json.dumps(res)}")
     out = {"resources": res}
-    lr, max_norm, count = 3e-4, 1.0, 10
-    trainer = Trainer(lambda m, b: 0.0, TrainerConfig(learning_rate=lr, adam_mu_bf16=True,
-                                                      grad_clip_norm=max_norm,
-                                                      weight_decay=0.1))
+    lr, max_norm, count, beta1, beta2 = 3e-4, 1.0, 10, 0.9, 0.95
+    hyper = (max_norm, lr, beta1, beta2, 1 - beta1 ** count, 1 - beta2 ** count, 1e-8, 0.1)
+
+    def update(adamw_, params, grads, opt, norm):
+        adamw_({k: (p, grads[k], opt["mu"][k], opt["nu"][k]) for k, p in params.items()}, norm,
+               *hyper)
     for cfg_name in OPTIM_CONFIGS:
         with open(os.path.join("benchmark", "configs", f"{cfg_name}.json")) as f:
             config = json.load(f)
@@ -1115,7 +1116,7 @@ def phase_optimizer(smi: str) -> dict:
         g_list = list(grads.values())
         with torch.no_grad():
             k_norm = global_norm(g_list)
-            p_norm = torch.sqrt(sum(g.float().pow(2).sum() for g in g_list))
+            p_norm = torch.sqrt(optim.sum_squares_plain(g_list))
             if not abs(float(k_norm) - float(p_norm)) <= 1e-6 * float(p_norm):
                 fail(f"{cfg_name}: K-norm's norm {float(k_norm)} against the plain "
                      f"{float(p_norm)}")
@@ -1133,9 +1134,8 @@ def phase_optimizer(smi: str) -> dict:
                         {key: {k: opt[key][k].clone() for k in names} for key in opt})
 
             (kp, kg, kopt), (pp, pg, popt) = copies(), copies()
-            trainer._adamw_kernels(kp, kg, kopt, count, lr, p_norm)
-            scale_by_clip_(list(pg.values()), p_norm, max_norm)
-            trainer._adamw(pp, pg, popt, count, lr)
+            update(optim.adamw_, kp, kg, kopt, p_norm)
+            update(optim.adamw_plain_, pp, pg, popt, p_norm)
             unequal = {what: sum(int((a[k] != b[k]).sum()) for k in names)
                        for what, a, b in (("p", kp, pp), ("mu", kopt["mu"], popt["mu"]),
                                           ("nu", kopt["nu"], popt["nu"]))}
@@ -1147,7 +1147,7 @@ def phase_optimizer(smi: str) -> dict:
             del kp, kg, kopt, pp, pg, popt
 
             def kernels():
-                trainer._adamw_kernels(params, grads, opt, count, lr, global_norm(g_list))
+                update(optim.adamw_, params, grads, opt, global_norm(g_list))
 
             optim.reset_launches()
             kernels()
@@ -1161,15 +1161,14 @@ def phase_optimizer(smi: str) -> dict:
                 fail(f"{cfg_name}: planned launches {want}, counted {launches}")
 
             def plain():
-                norm = torch.sqrt(sum(g.float().pow(2).sum() for g in g_list))
-                scale_by_clip_(g_list, norm, max_norm)
-                trainer._adamw(params, grads, opt, count, lr)
+                update(optim.adamw_plain_, params, grads, opt,
+                       torch.sqrt(optim.sum_squares_plain(g_list)))
 
             norm = global_norm(g_list)
             leaves = {k: (params[k], grads[k], opt["mu"][k], opt["nu"][k]) for k in params}
             times = {"kernels_ms": _time_ms(kernels),
-                     "k_norm_ms": _time_ms(lambda: optim.sum_squares(g_list)),
-                     "k_adamw_ms": _time_ms(lambda: optim.adamw_(
+                     "k_norm_ms": _time_ms(lambda: optim.sum_squares_cuda(g_list)),
+                     "k_adamw_ms": _time_ms(lambda: optim.adamw_cuda_(
                          leaves, norm, max_norm, lr, 0.9, 0.95, 0.65, 0.4, 1e-8, 0.0)),
                      "plain_ms": _time_ms(plain, reps=3)}
             del leaves, norm

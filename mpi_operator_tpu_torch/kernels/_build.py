@@ -261,3 +261,28 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_lib_path(name))
         _loaded[name] = lib
     return lib
+
+
+def typed_library(name: str, signatures: Dict[str, list], error_string: str) -> ctypes.CDLL:
+    """:func:`library` ``name`` with its entry points typed, once per loaded
+    library: each of ``signatures`` takes its argument types and returns an
+    int (a launch returns a CUDA error code, 0 for success), and the export
+    ``error_string`` names such a code for :func:`check`."""
+    lib = library(name)
+    if not getattr(lib, "_typed", False):
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib._error_string = getattr(lib, error_string)
+        lib._error_string.argtypes = [ctypes.c_int]
+        lib._error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def check(lib, rc: int, what: str) -> None:
+    """Raise ``RuntimeError`` if a launch of ``what`` in ``lib`` (a
+    :func:`typed_library`) returned the CUDA error ``rc``."""
+    if rc:
+        msg = lib._error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed ({rc}: {msg})")

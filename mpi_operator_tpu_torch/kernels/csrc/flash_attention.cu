@@ -570,67 +570,6 @@ flash_bwd_dq_kernel(const float4* __restrict__ acc, uint2* __restrict__ dq, size
   }
 }
 
-// Layout probe for the card tests: one warpgroup computes S = A.B^T (A [64,D]
-// and B [N,D] K-major from TMA tiles) and O = bf16(S).V (V [N,D] read
-// MN-major, bf16(S) the register A operand in place), the two operand paths
-// K1-K3 are built from. S and O are written in f32.
-template <int N, int D>
-__global__ void __launch_bounds__(WG_THREADS, 1)
-wgmma_probe_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
-                   const __grid_constant__ CUtensorMap tm_v, float* __restrict__ s_out,
-                   float* __restrict__ o_out) {
-  constexpr int NC = D / 64;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align_smem(smem_raw);
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sB = sA + 64 * D;
-  bf16* sV = sB + N * D;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(sV + N * D);
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int row = tid / 32 * 16 + lane / 4;
-  if (tid == 0) {
-    hopper::mbar_init(bar, 1);
-    hopper::mbar_fence_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    hopper::mbar_expect_tx(bar, (64 + 2 * N) * D * 2);
-    for (int c = 0; c < NC; ++c) {
-      hopper::tma_load_3d(sA + c * 64 * 64, &tm_a, bar, c * 64, 0, 0);
-      hopper::tma_load_3d(sB + c * N * 64, &tm_b, bar, c * 64, 0, 0);
-      hopper::tma_load_3d(sV + c * N * 64, &tm_v, bar, c * 64, 0, 0);
-    }
-  }
-  hopper::mbar_wait(bar, 0);
-  float acc_s[N / 2];
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    hopper::Wgmma<N>::ss(acc_s, hopper::desc_k_major<64>(sA, kk), hopper::desc_k_major<N>(sB, kk),
-                         kk > 0);
-  hopper::wgmma_commit();
-  hopper::wgmma_wait<0>();
-  hopper::fence_regs(acc_s);
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i)
-    s_out[(row + 8 * ((i / 2) % 2)) * N + 8 * (i / 4) + 2 * (lane % 4) + i % 2] = acc_s[i];
-  uint32_t a[N / 16][4];
-  hopper::acc_to_a(acc_s, a);
-  float acc_o[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_o[i] = 0.f;
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk)
-    hopper::Wgmma<D>::template rs<1>(acc_o, a[kk], hopper::desc_mn_major<N>(sV, kk), 1);
-  hopper::wgmma_commit();
-  hopper::wgmma_wait<0>();
-  hopper::fence_regs(acc_o);
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i)
-    o_out[(row + 8 * ((i / 2) % 2)) * D + 8 * (i / 4) + 2 * (lane % 4) + i % 2] = acc_o[i];
-}
-
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -673,20 +612,6 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   flash_bwd_dkv_kernel<DH, WIN><<<grid, WG_CTA, smem, stream>>>(
       tq, tk, tv, tdo, tdq, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, H, Hkv,
       T, causal, window, scale, scale * LOG2E);
-  return (int)cudaGetLastError();
-}
-
-template <int N, int D>
-int launch_probe(const void* a, const void* b, const void* v, void* s, void* o,
-                 cudaStream_t stream) {
-  CUtensorMap ta, tb, tv;
-  cudaError_t e;
-  if ((e = hopper::tmap_rows_bf16(&ta, a, 1, 64, D, 64)) != cudaSuccess) return (int)e;
-  if ((e = hopper::tmap_rows_bf16(&tb, b, 1, N, D, N)) != cudaSuccess) return (int)e;
-  if ((e = hopper::tmap_rows_bf16(&tv, v, 1, N, D, N)) != cudaSuccess) return (int)e;
-  const size_t smem = 1024 + (64 + 2 * N) * D * 2 + 8;
-  if ((e = prepare(wgmma_probe_kernel<N, D>, smem)) != cudaSuccess) return (int)e;
-  wgmma_probe_kernel<N, D><<<1, WG_THREADS, smem, stream>>>(ta, tb, tv, (float*)s, (float*)o);
   return (int)cudaGetLastError();
 }
 
@@ -752,18 +677,6 @@ int flash_bwd_dq_bf16(const void* dq_acc, void* dq, long long n, float scale, vo
   flash_bwd_dq_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
       (const float4*)dq_acc, (uint2*)dq, (size_t)n4, scale);
   return (int)cudaGetLastError();
-}
-
-// S = A.B^T (f32 [64, N]) and O = bf16(S).V (f32 [64, D]) through the wgmma
-// operand paths of K1-K3; a [64, D], b and v [N, D] bf16
-int wgmma_probe_bf16(const void* a, const void* b, const void* v, void* s, void* o, int N, int D,
-                     void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (N == 64 && D == 64) return launch_probe<64, 64>(a, b, v, s, o, st);
-  if (N == 64 && D == 128) return launch_probe<64, 128>(a, b, v, s, o, st);
-  if (N == 128 && D == 64) return launch_probe<128, 64>(a, b, v, s, o, st);
-  if (N == 128 && D == 128) return launch_probe<128, 128>(a, b, v, s, o, st);
-  return (int)cudaErrorInvalidValue;
 }
 
 const char* flash_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

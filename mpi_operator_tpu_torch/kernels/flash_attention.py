@@ -58,7 +58,6 @@ BLOCK_K = 128
 # the TMA box zero-fills the columns past D, and only D columns are stored.
 HEAD_DIMS = (16, 32, 64, 128)
 WINDOW_HEAD_DIMS = (64, 128)  # the windowed instances (WIN 1)
-PROBE_DIMS = (64, 128)  # N and D of the wgmma layout probe
 
 # Launches per kernel, counted by each wrapper right after its kernel was
 # accepted by the device (``flash_bwd_dq``: the dq pass; ``flash_bwd_dkv``:
@@ -220,26 +219,11 @@ _SIGNATURES = {
     "flash_fwd_bf16": [_P] * 5 + [_I] * 7 + [_F, _P],
     "flash_bwd_dkv_bf16": [_P] * 9 + [_I] * 7 + [_F, _P],
     "flash_bwd_dq_bf16": [_P, _P, ctypes.c_longlong, _F, _P],
-    "wgmma_probe_bf16": [_P] * 5 + [_I] * 2 + [_P],
 }
 
 
 def _lib():
-    lib = _build.library("flash_attention")
-    if not getattr(lib, "_typed", False):
-        for fn, argtypes in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.flash_error_string.argtypes = [ctypes.c_int]
-        lib.flash_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
-
-
-def _check_rc(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.flash_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA launch failed ({rc}: {msg})")
+    return _build.typed_library("flash_attention", _SIGNATURES, "flash_error_string")
 
 
 def _operand(x: torch.Tensor, name: str, shape) -> torch.Tensor:
@@ -297,7 +281,7 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float, window: int = 0):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             b, h, h_kv, t, d, int(causal), int(window), float(scale), _stream(q.device),
         )
-    _check_rc(lib, rc, "flash_fwd")
+    _build.check(lib, rc, "flash_fwd")
     launches["flash_fwd"] += 1
     return o, lse
 
@@ -345,7 +329,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dq_acc, causal: bool, scale: flo
             *(x.data_ptr() for x in ops), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, h, h_kv, t, d, int(causal), int(window), float(scale), _stream(dk.device),
         )
-    _check_rc(lib, rc, "flash_bwd_dkv")
+    _build.check(lib, rc, "flash_bwd_dkv")
     launches["flash_bwd_dkv"] += 1
     return dk, dv
 
@@ -363,34 +347,9 @@ def flash_bwd_dq_cuda(dq_acc, scale: float):
         rc = lib.flash_bwd_dq_bf16(
             dq_acc.data_ptr(), dq.data_ptr(), dq_acc.numel(), float(scale), _stream(dq.device),
         )
-    _check_rc(lib, rc, "flash_bwd_dq")
+    _build.check(lib, rc, "flash_bwd_dq")
     launches["flash_bwd_dq"] += 1
     return dq
-
-
-def wgmma_probe_cuda(a, b, v):
-    """The wgmma operand paths K1 and K3 are built from, on their own: S = A·Bᵀ
-    (both K-major from TMA tiles) and O = bf16(S)·V (S the register A operand
-    in place, V read MN-major), both f32. a [64, D], b and v [N, D] bf16 on the
-    card, N and D in ``PROBE_DIMS``. For the card tests; counts no launch."""
-    n, d = b.shape
-    if a.dtype != torch.bfloat16 or b.dtype != a.dtype or v.dtype != a.dtype:
-        raise ValueError("the probe takes bf16 operands")
-    if n not in PROBE_DIMS or d not in PROBE_DIMS:
-        raise ValueError(f"the probe takes N and D in {PROBE_DIMS}, got N={n}, D={d}")
-    a = _operand(a, "a", (64, d))
-    b = _operand(b, "b", (n, d))
-    v = _operand(v, "v", (n, d))
-    s = torch.empty(64, n, dtype=torch.float32, device=a.device)
-    o = torch.empty(64, d, dtype=torch.float32, device=a.device)
-    lib = _lib()
-    with torch.cuda.device(a.device):
-        rc = lib.wgmma_probe_bf16(
-            a.data_ptr(), b.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr(), n, d,
-            _stream(a.device),
-        )
-    _check_rc(lib, rc, "wgmma_probe")
-    return s, o
 
 
 # ---------------------------------------------------------------------------

@@ -1,27 +1,32 @@
-"""The optimizer phase's hand-written CUDA kernels (``csrc/optim.cu``): the
-clip's sum of squares and the clip's scale with the AdamW update, each one
-launch over many leaves.
+"""The optimizer phase: the clip's sum of squares and the clip's scale with
+the AdamW update, each as a hand-written CUDA kernel (``csrc/optim.cu``)
+beside its plain PyTorch version.
 
-- K-norm (:func:`sum_squares`): Σ x² over many f32 gradients, one f32 partial
-  per chunk of ``CHUNK`` elements, then one CTA adds the partials in double;
-- K-adamw (:func:`adamw_`): per element, g' = g · factor (the clip's, read
-  from the norm on the device), the bias-corrected AdamW step of
-  ``Trainer._adamw`` with its plain code's roundings on the card, and p, mu
-  and nu written in place.
+- K-norm (:func:`sum_squares_cuda`): Σ x² over many f32 gradients, one f32
+  partial per chunk of ``CHUNK`` elements, then one CTA adds the partials
+  in double; its plain version is :func:`sum_squares_plain`;
+- K-adamw (:func:`adamw_cuda_`): per element, g' = g · factor (the clip's,
+  read from the norm on the device), the bias-corrected AdamW step of
+  :func:`adamw_plain_` with its roundings on the card, and p, mu and nu
+  written in place.
 
-Together they read each gradient twice and each parameter and moment once,
-and write each of those once: 28 bytes a parameter with a bf16 first
+Together the kernels read each gradient twice and each parameter and moment
+once, and write each of those once: 28 bytes a parameter with a bf16 first
 moment, where the eager passes moved ~126. Neither syncs with the host.
+
+:func:`sum_squares` and :func:`adamw_` choose by the tensors' device, as
+flash attention's operators do: CUDA tensors go to the kernels, any others
+to the plain versions, and neither falls back to the other. The kernels
+refuse a tensor they cannot take with a ``ValueError``, and a library that
+does not build or load raises.
 
 A launch takes its leaves as a table passed by value in kernel parameter
 space; :func:`plan` cuts a list of leaves into launches of at most the
 library's capacity and each leaf into chunks (CPU-testable, as is
-:func:`fits`, which says which leaves K-adamw takes). On a CUDA device these
-kernels are the trainer's only optimizer path: a tensor they cannot take is
-refused with a ``ValueError``, and a library that does not build or load
-raises. :func:`load` builds and loads it (``Trainer.init_state`` calls it,
-so no timed step builds it); ``launches`` counts the launches of each
-kernel, and ``reset_launches`` zeroes them.
+:func:`fits`, which says which leaves K-adamw takes). :func:`load` builds
+and loads the library (``Trainer.init_state`` calls it, so no timed step
+builds it); ``launches`` counts the launches of each kernel, and
+``reset_launches`` zeroes them.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from typing import List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from mpi_operator_tpu_torch.kernels import _build
 
 CHUNK = 32768  # elements a CTA takes at a time: csrc/optim.cu's kChunk
 # leaves a launch takes with CUDA 12.1+'s 32,764 bytes of kernel parameters
@@ -55,22 +62,15 @@ def load():
     once. A build or load failure raises."""
     global _lib
     if _lib is None:
-        from mpi_operator_tpu_torch.kernels import _build
-
-        lib = _build.library("optim")
         i64, i32 = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
         f32, vp = ctypes.POINTER(ctypes.c_float), ctypes.c_void_p
-        for fn, argtypes in {
+        lib = _build.typed_library("optim", {
             "tpujob_optim_chunk": [],
             "tpujob_optim_capacity": [ctypes.c_int],
             "tpujob_sumsq_launch": [i64, i32, ctypes.c_int, vp, vp],
             "tpujob_sumsq_finish": [vp, ctypes.c_int, vp, vp],
             "tpujob_adamw_launch": [i64, i32, ctypes.c_int, ctypes.c_int, vp, f32, vp],
-        }.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.tpujob_optim_error_string.argtypes = [ctypes.c_int]
-        lib.tpujob_optim_error_string.restype = ctypes.c_char_p
+        }, "tpujob_optim_error_string")
         if lib.tpujob_optim_chunk() != CHUNK:
             raise RuntimeError(f"csrc/optim.cu chunks {lib.tpujob_optim_chunk()} elements, "
                                f"kernels/optim.py plans {CHUNK}")
@@ -114,12 +114,6 @@ def plan(sizes: Sequence[int], capacity: int, chunk: int = CHUNK
     return out
 
 
-def _check(rc: int, what: str) -> None:
-    if rc:
-        msg = _lib.tpujob_optim_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA launch failed ({rc}: {msg})")
-
-
 def _table(rows: Sequence[Sequence[int]], ends: Sequence[int]):
     words = np.asarray(rows, dtype=np.int64)
     chunk_end = np.asarray(ends, dtype=np.int32)
@@ -134,6 +128,20 @@ def _on_card(t: torch.Tensor, what: str) -> None:
 
 
 def sum_squares(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Σ x² over every element of ``tensors``, in f32: :func:`sum_squares_cuda`
+    for CUDA tensors, :func:`sum_squares_plain` for any others."""
+    if any(t.is_cuda for t in tensors):
+        return sum_squares_cuda(tensors)
+    return sum_squares_plain(tensors)
+
+
+def sum_squares_plain(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """K-norm's plain version, on any device: a pass a tensor (0 for an
+    empty list)."""
+    return sum(t.float().pow(2).sum() for t in tensors)
+
+
+def sum_squares_cuda(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """K-norm: Σ x² over every element of ``tensors`` (contiguous f32 tensors on
     one CUDA device), a 0-d f32 tensor there, with no host sync. Refuses
     any other tensor with a ``ValueError``."""
@@ -156,12 +164,12 @@ def sum_squares(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
         for idx, ends in plans:
             rows = [(tensors[i].data_ptr(), tensors[i].numel()) for i in idx]
             keep = _table(rows, ends)
-            _check(lib.tpujob_sumsq_launch(keep[2], keep[3], len(idx), base, stream),
-                   "sumsq_kernel")
+            rc = lib.tpujob_sumsq_launch(keep[2], keep[3], len(idx), base, stream)
+            _build.check(lib, rc, "sumsq_kernel")
             launches["sumsq"] += 1
             base += 4 * ends[-1]
-        _check(lib.tpujob_sumsq_finish(partials.data_ptr(), total, out.data_ptr(), stream),
-               "sumsq_finish_kernel")
+        rc = lib.tpujob_sumsq_finish(partials.data_ptr(), total, out.data_ptr(), stream)
+        _build.check(lib, rc, "sumsq_finish_kernel")
         launches["sumsq_finish"] += 1
     return out
 
@@ -169,12 +177,48 @@ def sum_squares(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 def adamw_(leaves: Mapping[str, Tuple[torch.Tensor, ...]], norm, max_norm: float, lr: float,
            beta1: float, beta2: float, bc1: float, bc2: float, eps: float,
            weight_decay: float) -> None:
-    """K-adamw, in place, over ``leaves``: name -> the leaf's (p, g, mu, nu)
-    local tensors, all on one CUDA device. The clip's factor from ``norm``
-    (a 0-d f32 tensor on the device, the norm before clipping; None: no
-    clip) is applied to g as it is read, then ``Trainer._adamw``'s update.
-    ``g`` is left as it was. Leaves with a bf16 and an f32 first moment go
-    to the two instances of the kernel. A leaf that does not :func:`fits`
+    """The clip's scale and AdamW, in place, over ``leaves``: name -> the
+    leaf's (p, g, mu, nu) local tensors. :func:`adamw_cuda_` for CUDA
+    tensors, :func:`adamw_plain_` for any others."""
+    if any(t.is_cuda for leaf in leaves.values() for t in leaf):
+        adamw_cuda_(leaves, norm, max_norm, lr, beta1, beta2, bc1, bc2, eps, weight_decay)
+    else:
+        adamw_plain_(leaves, norm, max_norm, lr, beta1, beta2, bc1, bc2, eps, weight_decay)
+
+
+def adamw_plain_(leaves: Mapping[str, Tuple[torch.Tensor, ...]], norm, max_norm: float,
+                 lr: float, beta1: float, beta2: float, bc1: float, bc2: float, eps: float,
+                 weight_decay: float) -> None:
+    """K-adamw's plain version, on any device and any layout: the clip's
+    factor from ``norm`` (the norm before clipping, a 0-d f32 tensor; None:
+    no clip) applied to each g as it is read, then optax's AdamW with bias
+    corrections ``bc1`` and ``bc2``. ``g`` is left as it was. The CPU's
+    update, and what K-adamw is held to on the card."""
+    factor = None if norm is None else torch.where(norm < max_norm, torch.ones_like(norm),
+                                                   max_norm / norm)
+    for p, g, mu, nu in leaves.values():
+        if factor is not None:
+            g = g * factor
+        # b1·mu in mu's dtype, b1 rounded to it too (as in optax, where a
+        # Python float times a bf16 moment is a bf16 product); the sum with
+        # (1 - b1)·g in f32
+        b1 = torch.tensor(beta1, dtype=mu.dtype).item()
+        m = (mu * b1).float().add_(g, alpha=1.0 - beta1)
+        nu.mul_(beta2).addcmul_(g, g, value=1.0 - beta2)
+        upd = (m / bc1).div_((nu / bc2).sqrt_().add_(eps))
+        if weight_decay:
+            upd.add_(p, alpha=weight_decay)
+        p.add_(upd, alpha=-lr)
+        mu.copy_(m)
+
+
+def adamw_cuda_(leaves: Mapping[str, Tuple[torch.Tensor, ...]], norm, max_norm: float,
+                lr: float, beta1: float, beta2: float, bc1: float, bc2: float, eps: float,
+                weight_decay: float) -> None:
+    """K-adamw, in place, over ``leaves``, all on one CUDA device:
+    :func:`adamw_plain_`'s update, ``norm`` (or None) a 0-d f32 tensor on
+    the device. ``g`` is left as it was. Leaves with a bf16 and an f32 first
+    moment go to the two instances of the kernel. A leaf that does not :func:`fits`
     is refused with a ``ValueError`` before anything is written."""
     for name, leaf in leaves.items():
         if not fits(*leaf):
@@ -207,9 +251,10 @@ def adamw_(leaves: Mapping[str, Tuple[torch.Tensor, ...]], norm, max_norm: float
                 rows = [tuple(t.data_ptr() for t in group[i]) + (group[i][0].numel(),)
                         for i in idx]
                 keep = _table(rows, ends)
-                _check(lib.tpujob_adamw_launch(keep[2], keep[3], len(idx),
-                                               int(mu_dtype == torch.bfloat16), norm_ptr,
-                                               hyper_ptr, stream), "adamw_kernel")
+                rc = lib.tpujob_adamw_launch(keep[2], keep[3], len(idx),
+                                             int(mu_dtype == torch.bfloat16), norm_ptr,
+                                             hyper_ptr, stream)
+                _build.check(lib, rc, "adamw_kernel")
                 launches["adamw"] += 1
     # written behind autograd's back: count the writes as an in-place op would
     for p, _, mu, nu in leaves.values():

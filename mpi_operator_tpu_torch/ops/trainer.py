@@ -44,13 +44,13 @@ loss is. The global norm sums the squares of every shard over the mesh
 (each ``fsdp`` and ``tensor`` shard once) and of each replicated tensor
 once, so clipping triggers at the same step as on one device.
 
-On a CUDA device the clip and AdamW run as two hand-written kernels
-(kernels/optim.py), and only so: K-norm sums the gradients' squares, and
-K-adamw applies the clip's factor as it reads each gradient (which stays
-unscaled) and updates p, mu and nu in one pass, with the same arithmetic. A
-leaf whose local tensors they cannot take (f32 parameter and gradient, f32
-or bf16 first moment, f32 second moment, all contiguous) is
-refused. Every CPU tensor takes the plain code below.
+The norm's sum of squares and AdamW are kernels/optim.py's, which chooses
+their device as flash attention does: on a CUDA device two hand-written
+kernels, K-norm and K-adamw, and only they; on any other their plain
+versions. For AdamW the clip only takes the norm: the update applies the
+clip's factor as it reads each gradient, which stays unscaled, and updates
+p, mu and nu in one pass, one call over every leaf. SGD and momentum take
+the clip in place (``clip_by_global_norm_``), then the plain update below.
 """
 
 from __future__ import annotations
@@ -66,7 +66,6 @@ from torch.distributed.tensor import DTensor, Partial
 from torch.utils.checkpoint import checkpoint
 
 from mpi_operator_tpu_torch.kernels import optim
-from mpi_operator_tpu_torch.runtime import stepstats
 from mpi_operator_tpu_torch.runtime.stepstats import (
     count_step,
     device_mark,
@@ -127,20 +126,6 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def _on_card(tensors) -> bool:
-    """Whether the optimizer phase over ``tensors`` runs the kernels
-    (kernels/optim.py): they are on a CUDA device."""
-    return any(_local(t).is_cuda for t in tensors)
-
-
-def _sum_squares(tensors) -> torch.Tensor:
-    """The sum of every tensor's squares, in f32: K-norm on the card, a pass
-    a tensor elsewhere."""
-    if _on_card(tensors):
-        return optim.sum_squares(tensors)
-    return sum(t.float().pow(2).sum() for t in tensors)
-
-
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares over every tensor, in f32. A DTensor's
     squares are summed over its shards on every rank of its mesh, over the
@@ -149,12 +134,12 @@ def global_norm(tensors) -> torch.Tensor:
     A plain tensor is whole on every rank and counts once."""
     plain = [t for t in tensors if not isinstance(t, DTensor)]
     sharded = [t for t in tensors if isinstance(t, DTensor)]
-    total = _sum_squares(plain)
+    total = optim.sum_squares(plain)
     if sharded:
         like = sharded[0]
         if any(t.device_mesh != like.device_mesh for t in sharded):
             raise ValueError("global_norm takes DTensors of one mesh")
-        local = _sum_squares([t.to_local() for t in sharded])
+        local = optim.sum_squares([t.to_local() for t in sharded])
         placements = [Partial() if p.is_shard() else p for p in like.placements]
         total = total + DTensor.from_local(local, like.device_mesh, placements).full_tensor()
     return torch.sqrt(total)
@@ -285,9 +270,7 @@ class Trainer:
         calls it after the update). During a capture on a CUDA
         device it also launches four device marks in stream order: ``fwd``
         before the forward, ``bwd`` before the backward, ``opt`` after the
-        backward and ``end`` after the update (runtime/stepstats.py), and
-        counts the elements AdamW updated through K-adamw and through the
-        plain code (``trainer.update.fused``, ``trainer.update.plain``)."""
+        backward and ``end`` after the update (runtime/stepstats.py)."""
         c = self.config
         model = state.params
         params = dict(model.named_parameters())
@@ -312,32 +295,28 @@ class Trainer:
                     for p in self._replicated:
                         _pmean_(p.grad)
                 grads = {n: p.grad for n, p in params.items()}
-                # on the card K-adamw scales each gradient as it reads it, so
-                # the clip there only takes the norm
-                kernels = c.optimizer == "adamw" and _on_card(params.values())
+                adamw = c.optimizer == "adamw"
                 norm = None
                 if c.grad_clip_norm > 0:
                     with span("trainer.clip"):
+                        # AdamW's update applies the clip's factor as it
+                        # reads each gradient
                         grad_list = list(grads.values())
-                        norm = (global_norm(grad_list) if kernels
+                        norm = (global_norm(grad_list) if adamw
                                 else clip_by_global_norm_(grad_list, c.grad_clip_norm))
                         metrics["grad_norm"] = norm
                 lr = learning_rate(c, state.step)
                 with span("trainer.update"):
-                    if kernels:
-                        self._adamw_kernels(params, grads, state.opt_state, state.step + 1, lr,
-                                            norm)
-                    elif c.optimizer == "adamw":
-                        self._adamw(params, grads, state.opt_state, state.step + 1, lr)
+                    if adamw:
+                        count = state.step + 1
+                        mu, nu = state.opt_state["mu"], state.opt_state["nu"]
+                        leaves = {n: tuple(_local(t) for t in (p, grads[n], mu[n], nu[n]))
+                                  for n, p in params.items()}
+                        optim.adamw_(leaves, norm, c.grad_clip_norm, lr, c.beta1, c.beta2,
+                                     1 - c.beta1 ** count, 1 - c.beta2 ** count, 1e-8,
+                                     c.weight_decay)
                     else:
                         self._sgd(params, grads, state.opt_state, lr)
-                    if c.optimizer == "adamw" and stepstats.counting():
-                        # counts the host knows: CPU totals, no copy to the device
-                        n = float(sum(_local(p).numel() for p in params.values()))
-                        for path, taken in (("fused", kernels), ("plain", not kernels)):
-                            stepstats.count(f"trainer.update.{path}",
-                                            torch.tensor(n if taken else 0.0,
-                                                         dtype=torch.float64))
                 for p in params.values():
                     p.grad = None
                 after_update = getattr(model, "after_update", None)
@@ -356,41 +335,6 @@ class Trainer:
         for _ in range(n):
             state, metrics = self.train_step(state, batch)
         return state, metrics
-
-    def _adamw_kernels(self, params, grads, opt, count: int, lr: float, norm):
-        """K-adamw over every leaf (kernels/optim.py): ``_adamw``'s update,
-        the clip's factor from ``norm`` (the norm before clipping; None: no
-        clip) applied to each gradient as it is read, the gradient itself
-        left unscaled. Refuses, with a ``ValueError``, a leaf whose local
-        tensors it cannot take."""
-        c = self.config
-        leaves = {name: tuple(_local(t) for t in (p, grads[name], opt["mu"][name],
-                                                  opt["nu"][name]))
-                  for name, p in params.items()}
-        optim.adamw_(leaves, norm, c.grad_clip_norm, lr, c.beta1, c.beta2,
-                     1.0 - c.beta1 ** count, 1.0 - c.beta2 ** count, 1e-8, c.weight_decay)
-
-    def _adamw(self, params, grads, opt, count: int, lr: float):
-        """AdamW in plain PyTorch on any device, the gradients already
-        clipped: the CPU's update, and what K-adamw is held to on the card
-        (tests/test_torch_cuda_kernels.py, chip_smoke.py)."""
-        c = self.config
-        bc1 = 1.0 - c.beta1 ** count
-        bc2 = 1.0 - c.beta2 ** count
-        for name, p in params.items():
-            p, g, mu, nu = (_local(t) for t in (p, grads[name], opt["mu"][name],
-                                                 opt["nu"][name]))
-            # b1·mu in mu's dtype, b1 rounded to it too (as in optax, where a
-            # Python float times a bf16 moment is a bf16 product); the sum
-            # with (1 - b1)·g in f32
-            b1 = torch.tensor(c.beta1, dtype=mu.dtype).item()
-            m = (mu * b1).float().add_(g, alpha=1.0 - c.beta1)
-            nu.mul_(c.beta2).addcmul_(g, g, value=1.0 - c.beta2)
-            upd = (m / bc1).div_((nu / bc2).sqrt_().add_(1e-8))
-            if c.weight_decay:
-                upd.add_(p, alpha=c.weight_decay)
-            p.add_(upd, alpha=-lr)
-            mu.copy_(m)
 
     def _sgd(self, params, grads, opt, lr: float):
         traces = opt.get("trace")

@@ -55,6 +55,8 @@ import torch
 from torch._C._autograd import _profiler_enabled
 from torch._C._profiler import _RecordFunctionFast
 
+from mpi_operator_tpu_torch.kernels import _build
+
 log = logging.getLogger("tpujob.stepstats")
 
 # the executor→worker contract: where the worker flushes its stats blob
@@ -231,19 +233,14 @@ def load_device_marks(device) -> bool:
     if torch.device(device).type != "cuda":
         return False
     if _mark_lib is None:
-        from mpi_operator_tpu_torch.kernels import _build
-
         try:
-            lib = _build.library("span_mark")
+            _mark_lib = _build.typed_library(
+                "span_mark", {"tpujob_span_mark_launch": [ctypes.c_int, ctypes.c_void_p]},
+                "tpujob_span_mark_error_string")
         except (RuntimeError, OSError):
             log.warning("device marks off: the mark kernels did not build or load",
                         exc_info=True)
             return False
-        lib.tpujob_span_mark_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        lib.tpujob_span_mark_launch.restype = ctypes.c_int
-        lib.tpujob_span_mark_error_string.argtypes = [ctypes.c_int]
-        lib.tpujob_span_mark_error_string.restype = ctypes.c_char_p
-        _mark_lib = lib
     return True
 
 
@@ -256,9 +253,7 @@ def device_mark(device, point: str) -> None:
         return
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = _mark_lib.tpujob_span_mark_launch(MARK_POINTS.index(point), stream)
-    if rc:
-        msg = _mark_lib.tpujob_span_mark_error_string(rc).decode()
-        raise RuntimeError(f"{MARK_KERNEL}_{point}: CUDA launch failed ({rc}: {msg})")
+    _build.check(_mark_lib, rc, f"{MARK_KERNEL}_{point}")
 
 
 class StepStatsRecorder:

@@ -53,7 +53,7 @@ ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__a9c197a7_18_flash_att
 ptxas info    : Function properties for _ZN51_GLOBAL__N__a9c197a7_18_flash_attention_cu_48fe48b519flash_bwd_dq_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16iiiiff
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 132 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__a9c197a7_18_flash_attention_cu_48fe48b518wgmma_probe_kernelILi64ELi128EEEv14CUtensorMap_stS1_S1_PfS2_' for 'sm_90a'
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__a9c197a7_18_flash_attention_cu_48fe48b516flash_fwd_kernelILi128ELi1EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiiiif' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 138 registers, used 1 barriers
 """
@@ -61,13 +61,12 @@ ptxas info    : Used 138 registers, used 1 barriers
 
 def test_kernel_resources_reads_registers_and_spills_per_instance():
     res = _build.kernel_resources(
-        PTXAS_LOG, ["flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                    "wgmma_probe_kernel"],
+        PTXAS_LOG, ["flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"],
     )
     assert res == {
         "flash_bwd_dkv_kernel<128>": {"registers": 255, "spill_stores": 40, "spill_loads": 36},
         "flash_bwd_dq_kernel<64>": {"registers": 132, "spill_stores": 0, "spill_loads": 0},
-        "wgmma_probe_kernel<64,128>": {"registers": 138, "spill_stores": 0, "spill_loads": 0},
+        "flash_fwd_kernel<128,1>": {"registers": 138, "spill_stores": 0, "spill_loads": 0},
     }
     # a kernel not asked for is not reported, and dq is not mistaken for dkv
     assert _build.kernel_resources(PTXAS_LOG, ["flash_bwd_dq_kernel"]) == {

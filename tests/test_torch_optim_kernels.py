@@ -1,25 +1,24 @@
-"""The optimizer kernels' host side (``kernels/optim.py``), on the CPU: no
-CUDA is needed to plan launches or to choose the leaves the kernels take.
+"""The optimizer phase (``kernels/optim.py``) on the CPU: no CUDA is needed
+to plan launches, to choose the leaves the kernels take, or to run the plain
+versions.
 
 - ``plan`` cuts leaves into launches of at most the library's capacity and
   each leaf into chunks, skipping empty leaves, and starts a launch before
   a chunk count would pass 2**31 - 1;
 - ``fits`` takes a leaf whose four tensors are f32 (mu f32 or bf16),
-  contiguous and of one shape, and nothing else; the kernels refuse any other tensor,
-  and CPU tensors, with a ``ValueError`` before loading anything; CPU
-  tensors take the plain code, which never calls the kernels;
-- in a captured step the two counters add up to the model's parameter
-  count, all of it plain on the CPU;
-- the trainer's wiring around the kernels (on the card the clip leaves the
-  gradients unscaled and hands K-adamw the norm) gives the plain trainer's
-  parameters when the kernels are stood in for by their arithmetic in
-  PyTorch, and then counts every element as K-adamw's; a leaf the kernels
-  cannot take stops the step;
+  contiguous and of one shape, and nothing else; the kernels' entry points
+  refuse any other tensor, and CPU tensors, with a ``ValueError`` before
+  loading anything; a CPU step takes the plain versions, which never call
+  the kernels;
+- ``adamw_plain_`` applies the clip's factor to each gradient as it reads
+  it, leaving the gradient as it was, and gives bit for bit the plain
+  trainer's update after an in-place ``scale_by_clip_``; it takes a leaf
+  the kernels refuse (their entry point stops at it) and gives the bits of
+  a contiguous copy;
 - under FSDP2 and the ``tensor`` split (CPU gangs of four), every rank's
-  local shards fit K-adamw, and that path gives the plain sharded trainer's
-  losses, norms and parameters.
+  local shards fit K-adamw, and one ``adamw_`` call a step takes them all.
 
-The kernels themselves are held to the plain code on the card
+The kernels themselves are held to the plain versions on the card
 (``tests/test_torch_cuda_kernels.py``).
 """
 
@@ -30,13 +29,11 @@ import sys
 import numpy as np
 import pytest
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from mpi_operator_tpu_torch.kernels import optim
 from mpi_operator_tpu_torch.models import llama
-from mpi_operator_tpu_torch.ops import data, trainer as trainer_mod
-from mpi_operator_tpu_torch.ops.trainer import Trainer, TrainerConfig
-from mpi_operator_tpu_torch.runtime import stepstats
+from mpi_operator_tpu_torch.ops import data
+from mpi_operator_tpu_torch.ops.trainer import Trainer, TrainerConfig, scale_by_clip_
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_sharded_step import gang, run_ranks  # noqa: E402
@@ -105,7 +102,7 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("the optimizer kernels ran for CPU tensors")
 
-    for fn in ("load", "sum_squares", "adamw_"):
+    for fn in ("load", "sum_squares_cuda", "adamw_cuda_"):
         monkeypatch.setattr(optim, fn, refuse)
     trainer, state, batch = _tiny(TrainerConfig(learning_rate=1e-3, grad_clip_norm=0.05))
     _, metrics = trainer.train_step(state, batch)
@@ -114,13 +111,13 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
 
 def _refused_by_sum_squares(tensor):
     with pytest.raises(ValueError, match="K-norm"):
-        optim.sum_squares([torch.zeros(3), tensor])
+        optim.sum_squares_cuda([torch.zeros(3), tensor])
 
 
 def _refused_by_adamw(leaf):
     with pytest.raises(ValueError, match="K-adamw cannot take leaf w|CUDA tensors"):
-        optim.adamw_({"v": _leaf(), "w": leaf}, None, 1.0, 1e-3, 0.9, 0.95, 0.1, 0.05,
-                     1e-8, 0.0)
+        optim.adamw_cuda_({"v": _leaf(), "w": leaf}, None, 1.0, 1e-3, 0.9, 0.95, 0.1, 0.05,
+                          1e-8, 0.0)
 
 
 @pytest.mark.parametrize(
@@ -143,116 +140,101 @@ def test_the_kernels_refuse_what_they_cannot_take(monkeypatch, case, refused):
     refused()
 
 
-def _tiny(config: TrainerConfig, strided: bool = False):
+def _tiny(config: TrainerConfig):
     model = llama.init(llama.tiny(), torch.Generator().manual_seed(0), "cpu")
-    if strided:  # one leaf whose parameter is every other element of a buffer
-        w = model.layers[0].wq
-        w.data = torch.zeros(w.shape[0], 2 * w.shape[1])[:, ::2].copy_(w.data)
     trainer = Trainer(lambda m, b: llama.loss_fn(m, b), config)
     tokens = np.random.default_rng(0).integers(0, 256, (2, 32)).astype(np.int32)
     return trainer, trainer.init_state(model), data.make_global_batch({"tokens": tokens}, "cpu")
 
 
-def _counted_steps(trainer, state, batch, steps):
-    stepstats.reset_counters()
-    try:
-        with profile(activities=[ProfilerActivity.CPU]):
-            for _ in range(steps):
-                state, _ = trainer.train_step(state, batch)
-        return state, stepstats.counter_totals()
-    finally:
-        stepstats.reset_counters()
-
-
-def test_counters_add_up_to_the_parameter_count():
-    trainer, state, batch = _tiny(TrainerConfig(learning_rate=1e-3))
-    n = sum(p.numel() for p in state.params.parameters())
-    _, totals = _counted_steps(trainer, state, batch, 2)
-    assert totals == {"steps": 2, "counters": {"trainer.update.fused": 0.0,
-                                               "trainer.update.plain": 2.0 * n}}
-
-
-def _sum_squares_in_torch(tensors):
-    return sum(t.float().pow(2).sum() for t in tensors)
-
-
-def _adamw_in_torch(leaves, norm, max_norm, lr, beta1, beta2, bc1, bc2, eps, weight_decay):
-    """K-adamw's arithmetic (csrc/optim.cu's update), in PyTorch, with its
-    refusal of a leaf it cannot take before anything is written."""
-    factor = 1.0 if norm is None else torch.where(norm < max_norm, torch.ones_like(norm),
-                                                  max_norm / norm)
-    for name, leaf in leaves.items():
-        if not optim.fits(*leaf):
-            raise ValueError(f"K-adamw cannot take leaf {name}")
+def _clipped_then_adamw_(leaves, norm, max_norm, lr, beta1, beta2, count, weight_decay):
+    """The trainer's plain update as it stood before the update took the
+    clip's factor itself: ``scale_by_clip_`` scales the gradients in place,
+    then AdamW over the clipped gradients."""
+    if norm is not None:
+        scale_by_clip_([g for _, g, _, _ in leaves.values()], norm, max_norm)
+    bc1 = 1.0 - beta1 ** count
+    bc2 = 1.0 - beta2 ** count
     for p, g, mu, nu in leaves.values():
-        g = g * factor
         b1 = torch.tensor(beta1, dtype=mu.dtype).item()
-        m = (mu * b1).float() + (1.0 - beta1) * g
-        nu.mul_(beta2).add_((1.0 - beta2) * (g * g))
-        upd = (m / bc1) / ((nu / bc2).sqrt() + eps)
+        m = (mu * b1).float().add_(g, alpha=1.0 - beta1)
+        nu.mul_(beta2).addcmul_(g, g, value=1.0 - beta2)
+        upd = (m / bc1).div_((nu / bc2).sqrt_().add_(1e-8))
         if weight_decay:
-            upd = upd + weight_decay * p
-        p.add_(-lr * upd)
+            upd.add_(p, alpha=weight_decay)
+        p.add_(upd, alpha=-lr)
         mu.copy_(m)
 
 
-def _kernels_in_torch(monkeypatch):
-    """The trainer takes its card path on the CPU, the kernels stood in for
-    by their arithmetic in PyTorch."""
-    monkeypatch.setattr(trainer_mod, "_on_card", lambda tensors: len(tensors) > 0)
-    monkeypatch.setattr(optim, "sum_squares", _sum_squares_in_torch)
-    monkeypatch.setattr(optim, "adamw_", _adamw_in_torch)
+def _random_leaves(mu_dtype, seed=0, shapes=((6, 4), (17,), (3, 5, 2))):
+    """name -> (p, g, mu, nu): random p, g and mu, a non-negative nu."""
+    gen = torch.Generator().manual_seed(seed)
+    leaves = {}
+    for i, shape in enumerate(shapes):
+        p, g, mu, nu = (torch.randn(shape, generator=gen) for _ in range(4))
+        leaves[f"leaf{i}"] = (p, g, (0.1 * mu).to(mu_dtype), 0.01 * nu.square())
+    return leaves
 
 
-@pytest.mark.parametrize("mu_bf16", [True, False])
-def test_trainer_around_the_kernels_matches_the_plain_trainer(monkeypatch, mu_bf16):
-    """Three steps, the clip acting on each (max_norm 0.05), weight decay
-    0.1: the plain trainer against one whose kernels are stood in for by
-    their arithmetic in PyTorch. A gradient clipped twice, or not at all,
-    moves the parameters far past 1e-6."""
-    config = TrainerConfig(learning_rate=1e-2, weight_decay=0.1, grad_clip_norm=0.05,
-                           adam_mu_bf16=mu_bf16)
-    trainer, plain, batch = _tiny(config)
-    plain, _ = _counted_steps(trainer, plain, batch, 3)
-
-    _kernels_in_torch(monkeypatch)
-    trainer, fused, batch = _tiny(config)
-    fused, totals = _counted_steps(trainer, fused, batch, 3)
-
-    n = sum(p.numel() for p in fused.params.parameters())
-    assert totals["counters"] == {"trainer.update.fused": 3.0 * n,
-                                  "trainer.update.plain": 0.0}
-    for (name, a), b in zip(plain.params.named_parameters(), fused.params.parameters()):
-        np.testing.assert_allclose(b.detach().numpy(), a.detach().numpy(), rtol=1e-6,
-                                   atol=1e-7, err_msg=name)
-    for key in ("mu", "nu"):
-        for name, a in plain.opt_state[key].items():
-            np.testing.assert_allclose(fused.opt_state[key][name].float().numpy(),
-                                       a.float().numpy(), rtol=1e-2 if key == "mu" else 1e-6,
-                                       atol=1e-9, err_msg=f"{key} {name}")
+def _copy(leaves):
+    return {n: tuple(t.clone() for t in leaf) for n, leaf in leaves.items()}
 
 
-def test_the_card_path_stops_at_a_leaf_the_kernels_cannot_take(monkeypatch):
-    """A strided parameter on the card path is refused, naming the leaf,
-    before any parameter moves."""
-    _kernels_in_torch(monkeypatch)
-    trainer, state, batch = _tiny(TrainerConfig(learning_rate=1e-2), strided=True)
-    before = [p.detach().clone() for p in state.params.parameters()]
-    with pytest.raises(ValueError, match="layers.0.wq"):
-        trainer.train_step(state, batch)
-    assert all(torch.equal(a, b) for a, b in zip(before, state.params.parameters()))
+@pytest.mark.parametrize("norm", [2.5, 0.5, None], ids=["above", "below", "none"])
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16], ids=["mu_f32", "mu_bf16"])
+def test_trainer_around_the_kernels_matches_the_plain_trainer(mu_dtype, norm):
+    """The update the trainer calls around the kernels' contract (the clip's
+    factor applied as each g is read, g left as it was), in its plain
+    version: three steps of ``adamw_plain_`` (max_norm 1, the norm above
+    it, below it, or no clip; weight decay 0.1) against the plain trainer's
+    ``scale_by_clip_`` in place and then AdamW: p, mu and nu bit for bit,
+    and every g as it was."""
+    max_norm, lr, beta1, beta2, wd = 1.0, 1e-2, 0.9, 0.95, 0.1
+    got = _random_leaves(mu_dtype)
+    want = _copy(got)
+    for count in (1, 2, 3):
+        grads = {n: leaf[1].clone() for n, leaf in got.items()}
+        norm_t = None if norm is None else torch.tensor(norm * count, dtype=torch.float32)
+        optim.adamw_plain_(got, norm_t, max_norm, lr, beta1, beta2, 1.0 - beta1 ** count,
+                           1.0 - beta2 ** count, 1e-8, wd)
+        _clipped_then_adamw_(want, norm_t, max_norm, lr, beta1, beta2, count, wd)
+        for name, (p, g, mu, nu) in got.items():
+            assert torch.equal(g, grads[name]), f"{name}: adamw_plain_ wrote g"
+            for what, a, b in (("p", p, want[name][0]), ("mu", mu, want[name][2]),
+                               ("nu", nu, want[name][3])):
+                assert a.dtype == b.dtype and torch.equal(a, b), f"{what} of {name}, step {count}"
+        for name, (_, g, _, _) in want.items():  # the next step's gradients, unscaled
+            g.copy_(grads[name])
+
+
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16], ids=["mu_f32", "mu_bf16"])
+def test_the_card_path_stops_at_a_leaf_the_kernels_cannot_take(mu_dtype):
+    """A leaf of every other column of a buffer (not contiguous): K-adamw's
+    entry point refuses it, naming the leaf, before anything is written;
+    ``adamw_plain_`` takes it and gives the bits of the same update on a
+    contiguous copy."""
+    strided = {n: tuple(t[..., ::2] for t in leaf)
+               for n, leaf in _random_leaves(mu_dtype, shapes=((6, 8), (4, 3, 10))).items()}
+    dense = {n: tuple(t.contiguous() for t in leaf) for n, leaf in strided.items()}
+    hyper = (torch.tensor(3.0), 1.0, 1e-2, 0.9, 0.95, 0.1, 0.05, 1e-8, 0.1)
+    with pytest.raises(ValueError, match="K-adamw cannot take leaf leaf0"):
+        optim.adamw_cuda_(strided, *hyper)
+    assert all(torch.equal(a, b) for n, leaf in strided.items()
+               for a, b in zip(leaf, dense[n]))
+    for leaves in (strided, dense):
+        optim.adamw_plain_(leaves, *hyper)
+    for name, leaf in strided.items():
+        for what, a, b in zip("p g mu nu".split(), leaf, dense[name]):
+            assert torch.equal(a, b), f"{what} of {name}"
 
 
 def _rank(local_rank, args):
-    """One rank of a CPU gang: three steps of the plan's sharded trainer
-    from the same weights, on the plain path and then on the card path
-    with the kernels stood in for by their arithmetic in PyTorch (which
-    refuses a leaf ``fits`` does not take). Rank 0 prints both paths'
-    losses, norms and parameters, and the leaves K-adamw took on each rank."""
+    """One rank of a CPU gang: three steps of the plan's sharded trainer.
+    Rank 0 prints, for every rank and step, how many leaves each call of
+    ``optim.adamw_`` took and how many of them fit K-adamw."""
     import dataclasses
 
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor
 
     from mpi_operator_tpu_torch.ops.data import make_global_batch, synthetic_tokens
     from mpi_operator_tpu_torch.runtime import bootstrap
@@ -261,56 +243,40 @@ def _rank(local_rank, args):
     cfg = dataclasses.replace(llama.tiny(), compute_dtype=torch.float32)
     config = TrainerConfig(learning_rate=1e-2, weight_decay=0.1, grad_clip_norm=0.05,
                            adam_mu_bf16=args["mu_bf16"])
-    taken = []
+    calls = []
+    adamw_ = optim.adamw_
 
-    def adamw_(leaves, *rest):
-        taken.append(len(leaves))
-        _adamw_in_torch(leaves, *rest)
+    def counted(leaves, *rest):
+        calls.append([len(leaves), sum(optim.fits(*leaf) for leaf in leaves.values())])
+        adamw_(leaves, *rest)
 
-    out = {}
-    for path in ("plain", "kernels"):
-        if path == "kernels":
-            trainer_mod._on_card = lambda tensors: len(tensors) > 0
-            optim.sum_squares, optim.adamw_ = _sum_squares_in_torch, adamw_
-        model = llama.init(cfg, torch.Generator().manual_seed(0), "cpu")
-        trainer = Trainer(llama.loss_fn, config, mesh=mesh)
-        state = trainer.init_state(model)
-        stream = synthetic_tokens(global_batch=4, seq_len=32, vocab=cfg.vocab)
-        losses, norms = [], []
-        for _ in range(3):
-            state, m = trainer.train_step(state, make_global_batch(next(stream), "cpu", mesh))
-            losses.append(m["loss"].item())
-            norms.append(m["grad_norm"].item())
-        params = {n: (p.full_tensor() if isinstance(p, DTensor) else p).detach().tolist()
-                  for n, p in model.named_parameters()}
-        out[path] = {"losses": losses, "norms": norms, "params": params}
+    optim.adamw_ = counted
+    model = llama.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    trainer = Trainer(llama.loss_fn, config, mesh=mesh)
+    state = trainer.init_state(model)
+    stream = synthetic_tokens(global_batch=4, seq_len=32, vocab=cfg.vocab)
+    steps = []
+    for _ in range(3):
+        before = len(calls)
+        state, _ = trainer.train_step(state, make_global_batch(next(stream), "cpu", mesh))
+        steps.append(calls[before:])
     gathered = [None] * dist.get_world_size()
-    dist.all_gather_object(gathered, taken)
+    dist.all_gather_object(gathered, steps)
     if dist.get_rank() == 0:
-        print(json.dumps({**out, "taken": gathered,
-                          "leaves": len(list(model.parameters()))}))
+        print(json.dumps({"steps": gathered, "leaves": len(list(model.parameters()))}))
     bootstrap.shutdown()
 
 
 @pytest.mark.parametrize("plan,mu_bf16", [("fsdp=4", False), ("fsdp=2,tensor=2", True)])
 def test_sharded_local_shards_take_the_card_path(plan, mu_bf16):
     """FSDP2's shards (of dim 0 and of dim 1, both contiguous locally) and
-    the ``tensor`` split's: on every rank each leaf's
-    local p, g, mu and nu fit K-adamw, one call a step takes them all, and
-    the card path's losses and clip norms (the local sums of squares
-    all-reduced as before) are the plain path's within 1e-6, and each
-    parameter within 1e-5 of its norm (as tests/test_torch_sharded_step.py
-    holds it: the stand-in's f32 roundings part from the plain code's in a
-    few elements, which Adam's division lifts where nu is near eps)."""
+    the ``tensor`` split's: on every rank and every step one ``adamw_`` call
+    takes every leaf, and each leaf's local p, g, mu and nu fit K-adamw. (The
+    sharded update against the one-device trainer:
+    tests/test_torch_sharded_step.py.)"""
     got = run_ranks(__file__, 4, {"plan": plan, "mu_bf16": mu_bf16})
-    assert got["taken"] == [[got["leaves"]] * 3] * 4
-    plain, kernels = got["plain"], got["kernels"]
-    np.testing.assert_allclose(kernels["losses"], plain["losses"], rtol=1e-6)
-    np.testing.assert_allclose(kernels["norms"], plain["norms"], rtol=1e-6)
-    for name, a in plain["params"].items():
-        a = np.asarray(a)
-        diff = np.linalg.norm(np.asarray(kernels["params"][name]) - a)
-        assert diff <= 1e-5 * np.linalg.norm(a), (name, diff / np.linalg.norm(a))
+    n = got["leaves"]
+    assert got["steps"] == [[[[n, n]]] * 3] * 4
 
 
 if __name__ == "__main__":
