@@ -45,7 +45,7 @@ BUILD_DIR = os.path.join(_HERE, "build")
 
 # one entry per CUDA source; later slices add theirs here
 SOURCES = {"flash_attention": "flash_attention.cu", "span_mark": "span_mark.cu",
-           "optim": "optim.cu"}
+           "optim": "optim.cu", "rmsnorm": "rmsnorm.cu"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

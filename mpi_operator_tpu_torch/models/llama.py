@@ -55,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from mpi_operator_tpu_torch.kernels.flash_attention import flash_attention
 from mpi_operator_tpu_torch.kernels.quant_matmul import quant_matmul
+from mpi_operator_tpu_torch.kernels.rmsnorm import rmsnorm
 from mpi_operator_tpu_torch.parallel import collectives
 from mpi_operator_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
 from mpi_operator_tpu_torch.parallel.ring_attention import dense_attention, ring_attention
@@ -148,9 +149,9 @@ def logical_axes(config: Config) -> Dict[str, Tuple[Optional[str], ...]]:
 
 
 def _rmsnorm(x, scale, eps: float):
-    x32 = x.float()
-    y = x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + eps)
-    return (y * scale).to(x.dtype)
+    """RMSNorm in f32 with the f32 scale, cast back to x's dtype: K-rms on
+    the card, its plain version elsewhere (kernels/rmsnorm.py)."""
+    return rmsnorm(x, _local(scale), eps)
 
 
 def _rope_tables(t: int, dh: int, theta: float, dtype, device, offset: int = 0):

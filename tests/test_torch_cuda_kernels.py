@@ -445,3 +445,167 @@ def test_optimizer_kernels_refuse_split_launches_and_count(monkeypatch):
     optim.reset_launches()
     step_trainer.train_step(state, batch)
     assert optim.launches == {"sumsq": 1, "sumsq_finish": 1, "adamw": 1}
+
+
+# ---------------------------------------------------------------------------
+# K-rms: the models' RMSNorm (csrc/rmsnorm.cu) against its plain version
+# (kernels/rmsnorm.py) on the same card
+# ---------------------------------------------------------------------------
+
+# (D, x heads-major): QK-norm's 128 and the tiny configurations' 16 and 64 on
+# the einsum's [B, H, T, Dh] view of [B, T, H, Dh] storage, the hidden sizes
+# 2048 and 4096 on [B, T, D]
+RMS_CASES = [(16, True), (64, True), (128, True), (2048, False), (4096, False)]
+RMS_EPS = 1e-5
+
+
+def _rms_inputs(d, dtype, heads_major, seed=0):
+    """x (rows of magnitudes spread over e^±2), a contiguous dy and an f32
+    scale near 1."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if heads_major:
+        x = torch.randn(2, 300, 8, d, generator=gen, device="cuda").permute(0, 2, 1, 3)
+    else:
+        x = torch.randn(3, 257, d, generator=gen, device="cuda")
+    x = (x * torch.exp(torch.randn(x.shape[:-1] + (1,), generator=gen, device="cuda"))).to(dtype)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    return x, dy, scale
+
+
+def _rms_plain_grads(x, dy, scale):
+    from mpi_operator_tpu_torch.kernels import rmsnorm as krms
+
+    xl = x.detach().clone().requires_grad_(True)
+    sl = scale.detach().clone().requires_grad_(True)
+    y = krms.rmsnorm_plain(xl, sl, RMS_EPS)
+    y.backward(dy)
+    return y.detach(), xl.grad, sl.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d,heads_major", RMS_CASES)
+def test_rmsnorm_kernels_match_plain(d, heads_major, dtype):
+    """K-rms's forward and backward against ``rmsnorm_plain`` (autograd
+    through the eager passes) on the card. Bounds, each from where the two
+    part:
+
+    - y within 1 ulp of its dtype (f32: 16 ulps): the same f32 arithmetic
+      but the order of the row's sum of squares, which moves rstd by a few
+      f32 ulps; y's one rounding to bf16 can then land a ulp apart;
+    - dx within 1 ulp of its dtype plus 32 f32 ulps of the size of its
+      operands, rstd · (|g| + |x̂| · Σ|g · x̂| / D): the row's Σ g · x̂ is
+      taken in another order and dx = rstd · (g − x̂ · mean) can cancel;
+    - dscale within 1e-5 of Σ_rows |dy · x̂| in each column: two f32 sums of
+      the same products in different orders, each within a few 1e-7 of that
+      sum of magnitudes at these row counts.
+
+    The output keeps x's strides; a second backward gives the same bits."""
+    from mpi_operator_tpu_torch.kernels import rmsnorm as krms
+
+    _need_card()
+    x, dy, scale = _rms_inputs(d, dtype, heads_major)
+    y_ref, dx_ref, ds_ref = _rms_plain_grads(x, dy, scale)
+    krms.reset_launches()
+    y, rstd = krms.rms_fwd_cuda(x, scale, RMS_EPS)
+    dx, dscale = krms.rms_bwd_cuda(x, dy, scale, rstd)
+    dx2, dscale2 = krms.rms_bwd_cuda(x, dy, scale, rstd)
+    torch.cuda.synchronize()
+    assert krms.launches == {"rms_fwd": 1, "rms_bwd": 2, "rms_bwd_finish": 2}
+    assert y.stride() == x.stride() and dx.stride() == x.stride()
+    assert y.dtype == dx.dtype == dtype and dscale.dtype == torch.float32
+    assert torch.equal(dx, dx2) and torch.equal(dscale, dscale2)
+    n_y = 1 if dtype == torch.bfloat16 else 16
+    _assert_ulps(y, y_ref, y_ref, n_y, f"y at D {d}")
+    _assert_rms_backward(x, dy, scale, dx, dscale, dx_ref, ds_ref)
+
+
+def _assert_rms_backward(x, dy, scale, dx, dscale, dx_ref, ds_ref):
+    """dx and dscale against the plain version's, under the bounds that
+    ``test_rmsnorm_kernels_match_plain`` states."""
+    d = x.shape[-1]
+    x32 = x.float()
+    rs = torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + RMS_EPS)
+    xh = x32 * rs
+    g = dy.float() * scale
+    size = rs * (g.abs() + xh.abs() * (g * xh).abs().sum(-1, keepdim=True) / d)
+    err = (dx.float() - dx_ref.float()).abs()
+    tol = 32 * _ulp(size, torch.float32)
+    if x.dtype == torch.bfloat16:
+        tol = tol + _ulp(torch.maximum(dx.float().abs(), dx_ref.float().abs()), x.dtype)
+    assert float((err / tol).max()) <= 1.0, f"dx at D {d}: {float((err / tol).max()):.3f}"
+    magnitude = (dy.float() * xh).abs().reshape(-1, d).sum(0)
+    assert float(((dscale - ds_ref).abs() / magnitude).max()) <= 1e-5, f"dscale at D {d}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,heads_major", [(128, True), (4096, False)])
+def test_rmsnorm_takes_a_broadcast_gradient(d, heads_major):
+    """``rmsnorm(x, scale).sum().backward()`` on the card: autograd hands the
+    Function a broadcast dy (stride 0), which goes to the kernel as one
+    contiguous copy; dx and dscale as the plain version's, under the bounds
+    of ``test_rmsnorm_kernels_match_plain``."""
+    from mpi_operator_tpu_torch.kernels import rmsnorm as krms
+
+    _need_card()
+    x, _, scale = _rms_inputs(d, torch.bfloat16, heads_major)
+    ones = torch.ones_like(x)
+    _, dx_ref, ds_ref = _rms_plain_grads(x, ones, scale)
+    xl = x.detach().clone().requires_grad_(True)
+    sl = scale.detach().clone().requires_grad_(True)
+    krms.reset_launches()
+    krms.rmsnorm(xl, sl, RMS_EPS).sum().backward()
+    torch.cuda.synchronize()
+    assert krms.launches == {"rms_fwd": 1, "rms_bwd": 1, "rms_bwd_finish": 1}
+    _assert_rms_backward(x, ones, scale, xl.grad, sl.grad, dx_ref, ds_ref)
+
+
+def _rms_step_model(name):
+    import dataclasses
+
+    from mpi_operator_tpu_torch.models import afmoe, llama
+
+    if name == "afmoe":  # bf16 and D 64: the flash kernels' types and windowed widths
+        return afmoe, dataclasses.replace(afmoe.tiny(), compute_dtype=torch.bfloat16,
+                                          head_dim=64, remat_layers=True)
+    if name == "llama-f32":  # f32 norms; attention by the dense oracle
+        return llama, dataclasses.replace(llama.tiny(), compute_dtype=torch.float32,
+                                          attention_impl="dense")
+    return llama, dataclasses.replace(llama.tiny(), remat_layers=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llama", "llama-f32", "afmoe"])
+def test_a_train_step_normalises_through_k_rms(monkeypatch, name):
+    """One train step of a tiny model on the card: every norm call launches
+    rms_fwd once (the forward, and again in the remat's recompute), every
+    norm of the backward rms_bwd and its finish once, and the plain version
+    never runs. Llama: 2 norms a layer and the final one; AFMoE: 6 a layer
+    (QK-norm at D 64) and the final one."""
+    from mpi_operator_tpu_torch.kernels import rmsnorm as krms
+    from mpi_operator_tpu_torch.models import llama
+    from mpi_operator_tpu_torch.ops.data import make_global_batch
+    from mpi_operator_tpu_torch.ops.trainer import Trainer, TrainerConfig
+
+    _need_card()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain norm ran for CUDA tensors")
+
+    monkeypatch.setattr(krms, "rmsnorm_plain", refuse)
+    module, cfg = _rms_step_model(name)
+    model = module.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    trainer = Trainer(llama.loss_fn, TrainerConfig(learning_rate=1e-3))
+    state = trainer.init_state(model)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (2, 64)).astype(np.int32)
+    batch = make_global_batch({"tokens": tokens}, "cuda")
+    krms.reset_launches()
+    _, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    per_layer = 6 if name == "afmoe" else 2
+    norms = per_layer * cfg.n_layers + 1
+    again = per_layer * cfg.n_layers if cfg.remat_layers else 0
+    assert krms.launches == {"rms_fwd": norms + again, "rms_bwd": norms,
+                             "rms_bwd_finish": norms}
+    assert np.isfinite(float(metrics["loss"]))
