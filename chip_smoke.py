@@ -166,6 +166,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``torch.nn.functional.rms_norm`` (bf16 weight; the yardstick, never on
    the port's path) as ``library_ms``, by device time; the kernels'
    registers and spill bytes from ptxas.
+22. multi-head latent attention (PR 18): the (192, 128) pair's K1
+   <192, 0, 128>, K3 (``flash_bwd_dkv_kernel_dv``) and the dq pass at the
+   ``kanana-2-30b-a3b-l6.s32768-zipf`` cell's attention (B 1, T 32768, 32
+   heads, q/k 192, v 128, causal) against their plain versions on the first
+   and the last head (the backward one head at a time), with phase 3's
+   ceilings and per-row bound; K1, the backward and K3 alone timed beside
+   their bound (the forward's two products, K3's five) and
+   ``scaled_dot_product_attention`` forward and backward (the yardstick,
+   never on the port's path) as ``library_ms``; ptxas's registers and
+   spills of the pair's kernels beside the D 128 ones; then one Kanana step
+   at the cell's widths and shapes (6 layers, 16,032 ids, B 1, T 32768,
+   remat) through ``Trainer.train_step`` after a warm-up step, its device
+   kernels counted in a trace: 6 of K1, K3 and the dq pass each (under the
+   pair's launch keys, none under the equal widths'), 60 grouped products (5
+   MoE layers x 3 products x forward, recompute and 2 backward), K-rms 37 /
+   19 / 19 (n = 19 norms), one launch of each optimizer kernel, and 12
+   ``mla_in`` and 12 ``mla_attn`` marks (forward and recompute).
 
 The line before the last is a JSON object with one entry per kernel (its
 registers and spill bytes per head dim from ptxas, from phase 7 its
@@ -205,6 +222,10 @@ CUDA_KERNEL = {  # launch count -> its __global__ function in CU_SOURCE
     "flash_fwd": "flash_fwd_kernel",
     "flash_bwd_dq": "flash_bwd_dq_kernel",
     "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+}
+UNEQUAL_KERNEL = {  # the (192, 128) pair's K1 and K3 (the dq pass is one for all)
+    "flash_fwd": "flash_fwd_kernel",
+    "flash_bwd_dkv": "flash_bwd_dkv_kernel_dv",
 }
 # The main path's first and last losses as recorded on the card, and how far each may
 # move. The first precedes any backward and repeats to the printed digits; it is the
@@ -291,14 +312,22 @@ def phase_build() -> dict:
         + ", ".join(f"{k} {v:.1f}s" for k, v in per_lib.items()))
     res = {}
     for name in _build.SOURCES:
-        res.update(_build.kernel_resources(_build.build_log(name), CUDA_KERNEL.values()))
+        res.update(_build.kernel_resources(_build.build_log(name),
+                                           [*CUDA_KERNEL.values(), *UNEQUAL_KERNEL.values()]))
     out = {}
     for wrapper, kernel in CUDA_KERNEL.items():
         regs, spills = {}, {}
-        # K1 and K3 are instances <D, WIN>: WIN 0 the causal kernel, WIN 1 the
-        # windowed one (at WINDOW_DIMS); the dq pass has no template
-        keys = [(str(d), f"{kernel}<{d},0>") for d in HEAD_DIMS]
-        keys += [(f"{d}w", f"{kernel}<{d},1>") for d in WINDOW_DIMS]
+        # K1 and K3 are instances <D, WIN> (K1's third argument, v's width,
+        # is D): WIN 0 the causal kernel, WIN 1 the windowed one (at
+        # WINDOW_DIMS); the (192, 128) pair's ("192x128") K1 <192, 0, 128>
+        # and K3's own kernel; the dq pass has no template
+        def args(d, win):
+            return f"{d},{win},{d}" if kernel == "flash_fwd_kernel" else f"{d},{win}"
+
+        keys = [(str(d), f"{kernel}<{args(d, 0)}>") for d in HEAD_DIMS]
+        keys += [(f"{d}w", f"{kernel}<{args(d, 1)}>") for d in WINDOW_DIMS]
+        if wrapper in UNEQUAL_KERNEL:
+            keys.append(("192x128", f"{UNEQUAL_KERNEL[wrapper]}<192,0,128>"))
         if kernel not in WINDOWED:
             keys = [(str(d), kernel) for d in HEAD_DIMS]
         for label, key in keys:
@@ -1075,8 +1104,8 @@ def phase_trinity_step(smi: str) -> dict:
     rms_launches = dict(krms.launches)
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     counts = {
-        "flash_fwd windowed": sum("flash_fwd_kernel<128, 1>" in x for x in names),
-        "flash_fwd causal": sum("flash_fwd_kernel<128, 0>" in x for x in names),
+        "flash_fwd windowed": sum("flash_fwd_kernel<128, 1, 128>" in x for x in names),
+        "flash_fwd causal": sum("flash_fwd_kernel<128, 0, 128>" in x for x in names),
         "flash_bwd_dkv windowed": sum("flash_bwd_dkv_kernel<128, 1>" in x for x in names),
         "flash_bwd_dkv causal": sum("flash_bwd_dkv_kernel<128, 0>" in x for x in names),
         "grouped products": sum("GroupProblemShape" in x for x in names),
@@ -1688,6 +1717,169 @@ def phase_workers(smi: str) -> dict:
     return out
 
 
+MLA_SHAPE = (1, 32768, 32, 192, 128)  # B, T, H (= Hkv), q/k and v widths of the Kanana cell
+KANANA_STEP = {"n_layers": 6, "vocab": 16_032, "batch": 1, "seq": 32768}
+
+
+def _mla_step(smi: str) -> dict:
+    """One Kanana step at the cell's widths and shapes through
+    ``Trainer.train_step`` after a warm-up step, its kernels counted in a
+    trace (phase 22's second half)."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpi_operator_tpu_torch.kernels import flash_attention as fa
+    from mpi_operator_tpu_torch.kernels import optim
+    from mpi_operator_tpu_torch.kernels import rmsnorm as krms
+    from mpi_operator_tpu_torch.models import MODELS, llama
+    from mpi_operator_tpu_torch.ops.data import make_global_batch
+    from mpi_operator_tpu_torch.ops.trainer import Trainer, TrainerConfig
+
+    module, factory = MODELS["kanana-2-30b-a3b"]
+    n = KANANA_STEP
+    cfg = dataclasses.replace(factory(), n_layers=n["n_layers"], vocab=n["vocab"],
+                              remat_layers=True)
+    model = module.init(cfg, torch.Generator(device="cuda").manual_seed(22), "cuda")
+    trainer = Trainer(functools.partial(llama.loss_fn, ce_chunk=2048),
+                      TrainerConfig(learning_rate=3e-4, warmup_steps=2000, adam_mu_bf16=True))
+    state = trainer.init_state(model)
+    rng = np.random.default_rng(22)
+    host = {"tokens": rng.integers(0, n["vocab"], (n["batch"], n["seq"]), dtype=np.int32)}
+    batch = make_global_batch(host, "cuda")
+    state, _ = trainer.train_step(state, batch)  # warm-up: every shape built
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    optim.reset_launches()
+    krms.reset_launches()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, metrics = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    launches, optim_launches = dict(fa.launches), dict(optim.launches)
+    rms_launches = dict(krms.launches)
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    counts = {
+        "flash_fwd 192x128": sum("flash_fwd_kernel<192, 0, 128>" in x for x in names),
+        "flash_bwd_dkv 192x128": sum("flash_bwd_dkv_kernel_dv<192, 0, 128>" in x for x in names),
+        "flash_bwd_dq": sum("flash_bwd_dq_kernel" in x for x in names),
+        "grouped products": sum("GroupProblemShape" in x for x in names),
+        "adamw_kernel": sum("adamw_kernel" in x for x in names),
+        "mla_in marks": sum("tpujob_span_mark_mla_in" in x for x in names),
+        "mla_attn marks": sum("tpujob_span_mark_mla_attn" in x for x in names),
+        **{k: sum(k in x for x in names) for k in RMS_KERNELS},
+    }
+    loss, peak = float(metrics["loss"]), torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[mla] one Kanana step at B {n['batch']} T {n['seq']}, {n['n_layers']} layers, vocab "
+        f"{n['vocab']}: {step_ms:.1f} ms (traced), loss {loss:.4f}, peak {peak:.2f} GiB; "
+        f"launches {launches}, optimizer {optim_launches}, K-rms {rms_launches}; device "
+        f"kernels {counts} [{smi}]")
+    del state, model, trainer, batch, metrics, prof
+    torch.cuda.empty_cache()
+    layers = n["n_layers"]
+    want_launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                     **{f"{k}.192x128": layers for k in REPLACES}}
+    if launches != want_launches:
+        fail(f"expected {want_launches} flash launches in a Kanana step: {launches}")
+    if optim_launches != {name: 1 for name in optim.launches}:
+        fail(f"expected one launch of each optimizer kernel in a Kanana step: {optim_launches}")
+    norms = 3 * layers + 1
+    want_rms = {"rms_fwd": 2 * norms - 1, "rms_bwd": norms, "rms_bwd_finish": norms}
+    if rms_launches != want_rms:
+        fail(f"expected K-rms launches {want_rms} in a Kanana step: {rms_launches}")
+    want = {"flash_fwd 192x128": layers, "flash_bwd_dkv 192x128": layers,
+            "flash_bwd_dq": layers, "grouped products": 3 * 4 * (layers - 1), "adamw_kernel": 1,
+            "mla_in marks": 2 * layers, "mla_attn marks": 2 * layers,
+            **{f"{k}_kernel": v for k, v in want_rms.items()}}
+    if counts != want or not math.isfinite(loss):
+        fail(f"expected {want} device kernels in a Kanana step and a finite loss: "
+             f"{counts}, {loss}")
+    return {"launches": launches, "kernels": counts, "step_ms": step_ms, "peak_gib": peak}
+
+
+def phase_mla(smi: str, resources: dict) -> dict:
+    """Phase 22: the (192, 128) pair's kernels at the Kanana cell's attention
+    and one Kanana step (the module docstring's item 22). Returns the
+    kernels' times, bounds, errors and registers, and the step's counts."""
+    from mpi_operator_tpu_torch.kernels import flash_attention as fa
+
+    b, t, h, d, dv = MLA_SHAPE
+    scale = d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(22)
+
+    def rnd(width):
+        return torch.randn(b, h, t, width, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = rnd(d), rnd(d), rnd(dv), rnd(dv)
+    tag = f"{MLA_SHAPE} causal"
+    errs = {}
+    with torch.no_grad():
+        o, lse = fa.flash_fwd_cuda(q, k, v, True, scale)
+        delta = (do.float() * o.float()).sum(-1)
+        dq, dk, dv_ = fa.flash_bwd_cuda(q, k, v, do, lse, delta, True, scale)
+        torch.cuda.synchronize()
+        for head in (0, h - 1):
+            hs = slice(head, head + 1)
+            one = (q[:, hs], k[:, hs], v[:, hs], do[:, hs])
+            o_ref, lse_ref = fa.flash_fwd_plain(*one[:3], True, scale)
+            errs[f"o {head}"] = _check(f"K1 o {tag} head {head}", o[:, hs], o_ref, TOL_O)
+            e_lse = _max_err(lse[:, hs], lse_ref)
+            log(f"[mla] K1 lse {tag} head {head}: max abs err {e_lse:.3e} (bound {TOL_LSE:.1e})")
+            if not e_lse <= TOL_LSE:
+                fail(f"K1 lse of the (192, 128) pair disagrees with its plain version: {e_lse}")
+            refs = _plain_bwd_by_head(*one, lse[:, hs], delta[:, hs], True, scale)
+            for name, got, ref in zip(("dq", "dk", "dv"), (dq[:, hs], dk[:, hs], dv_[:, hs]), refs):
+                errs[f"{name} {head}"] = _check(f"K3 + dq pass {name} {tag} head {head}", got,
+                                               ref, _grad_bound(ref))
+            del refs, o_ref, lse_ref
+        del dq, dk, dv_
+        torch.cuda.empty_cache()
+        pairs = b * h * t * (t + 1) / 2
+        fwd_bound = 1e3 * 2 * pairs * (d + dv) / BF16_FLOPS_PER_S
+        k3_bound = 1e3 * 2 * pairs * (3 * d + 2 * dv) / BF16_FLOPS_PER_S
+        need_bwd = 1e3 * 2 * pairs * (2 * d + 2 * dv) / BF16_FLOPS_PER_S
+        acc = torch.zeros(q.shape, device="cuda")
+        args = (q, k, v, do, lse, delta)
+        fwd_ms = _time_ms(lambda: fa.flash_fwd_cuda(q, k, v, True, scale), reps=5)
+        bwd_ms = _time_ms(lambda: fa.flash_bwd_cuda(*args, True, scale), reps=5)
+        k3_ms = _time_ms(lambda: fa.flash_bwd_dkv_cuda(*args, acc, True, scale), reps=5)
+        dq_ms = _time_ms(lambda: fa.flash_bwd_dq_cuda(acc, scale, dv), reps=5)
+        del acc
+        sdpa_fwd = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale), reps=5)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                                               scale=scale)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    sdpa_both = _time_ms(sdpa_fwd_bwd, reps=3)
+    del q, k, v, do, o, lse, delta, args, qg, kg, vg
+    torch.cuda.empty_cache()
+    regs = {w: {label: resources[w]["registers"][label] for label in ("128", "192x128")}
+            for w in UNEQUAL_KERNEL}
+    spills = {w: {label: resources[w]["spill_bytes"][label] for label in ("128", "192x128")}
+              for w in UNEQUAL_KERNEL}
+    out = {"flash_fwd_ms": fwd_ms, "flash_fwd_bound_ms": fwd_bound, "flash_bwd_ms": bwd_ms,
+           "k3_ms": k3_ms, "k3_bound_ms": k3_bound, "bwd_needed_bound_ms": need_bwd,
+           "dq_pass_ms": dq_ms, "library_ms": {"sdpa_fwd": sdpa_fwd, "sdpa_fwd_bwd": sdpa_both},
+           "max_abs_err": errs, "registers": regs, "spill_bytes": spills}
+    log(f"[mla] {tag}: K1 {fwd_ms:.3f} ms ({100 * fwd_bound / fwd_ms:.1f} % of "
+        f"{fwd_bound:.3f}), backward {bwd_ms:.3f} ms ({100 * need_bwd / bwd_ms:.1f} % of its "
+        f"four products' {need_bwd:.3f}), K3 alone {k3_ms:.3f} ms ({100 * k3_bound / k3_ms:.1f} "
+        f"% of its five products' {k3_bound:.3f}), dq pass {dq_ms:.3f} ms; sdpa forward "
+        f"{sdpa_fwd:.3f} ms, forward + backward {sdpa_both:.3f} ms; registers {regs}, spill "
+        f"bytes {spills} [{smi}]")
+    if any(spills[w]["192x128"] for w in spills):
+        fail(f"the (192, 128) kernels spill: {spills}")
+    out["step"] = _mla_step(smi)
+    return out
+
+
 def main() -> None:
     smi = phase_device()
     resources = phase_build()
@@ -1713,8 +1905,9 @@ def main() -> None:
     phase_trinity_step(smi)
     optimizer = phase_optimizer(smi)
     rms = phase_rmsnorm(smi)
+    mla = phase_mla(smi, resources)
     log(json.dumps({"library_products": quant, "window": window, "grouped_mm": grouped,
-                    "optimizer": optimizer, "rmsnorm": rms}))
+                    "optimizer": optimizer, "rmsnorm": rms, "mla": mla}))
     kernels = [
         {
             "name": name,

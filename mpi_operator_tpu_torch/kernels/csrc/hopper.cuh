@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's kernels, in plain inline PTX:
 // mbarriers, TMA tile loads and reduce-adds, bulk groups, the async-proxy
 // fence, named barriers, the wgmma shared-memory descriptor, the wgmma
-// fence/commit/wait and the m64nNk16 bf16 -> f32 products for N = 64 and 128.
+// fence/commit/wait and the m64nNk16 bf16 -> f32 products for N = 32, 64 and 128.
 // No PyTorch and no CUTLASS headers, so a source that includes this builds in
 // seconds. Host side: 128B-swizzled TMA descriptors, encoded by libcuda's
 // cuTensorMapEncodeTiled, reached through the CUDA runtime (no -lcuda).
@@ -190,6 +190,20 @@ __device__ __forceinline__ void acc_to_a(const float (&acc)[R], uint32_t (&a)[R 
 }
 
 template <int N> struct Wgmma;
+
+template <> struct Wgmma<32> {
+  // D[64 x 32] (+)= A . B, A and B in shared memory (both K-major)
+  __device__ static __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
 
 template <> struct Wgmma<64> {
   // D[64 x 64] (+)= A . B, A and B in shared memory, K-major unless

@@ -22,7 +22,11 @@ is no fallback from one to the other.
 
 Layout: [B, H, T, D] heads-major, k/v at Hkv heads (GQA: q head h reads kv
 head h // (H // Hkv)). lse and delta are [B, H, T] f32 (the TPU kernels'
-trailing singleton and block padding are gone).
+trailing singleton and block padding are gone). v (and so o and dO) may
+have a head width Dv of its own: q·kᵀ runs over D, p·v over Dv. The kernels
+are compiled at D = Dv in ``HEAD_DIMS`` and at the pairs of
+``UNEQUAL_HEAD_DIMS``, (192, 128): multi-head latent attention's q and k of
+128 + 64 RoPE columns and its v of 128 (models/deepseek_v3.py).
 
 ``window`` (0: none) is a sliding window on top of the causal mask, which
 the TPU kernels do not have: key j is visible to query i iff
@@ -54,20 +58,32 @@ _NEG_INF = -1e30
 # untiled, and its sums differ from the kernels' in f32 order only.)
 BLOCK_Q = 128
 BLOCK_K = 128
-# Head dims the kernels are compiled at. D 16 and 32 run in the D-64 tiles:
-# the TMA box zero-fills the columns past D, and only D columns are stored.
+# Head dims the kernels are compiled at (q, k and v of one width). D 16 and
+# 32 run in the D-64 tiles: the TMA box zero-fills the columns past D, and
+# only D columns are stored.
 HEAD_DIMS = (16, 32, 64, 128)
 WINDOW_HEAD_DIMS = (64, 128)  # the windowed instances (WIN 1)
+# (q/k width, v width) pairs of unequal widths the kernels are compiled at,
+# causal or not, with no window: K1 <192, 0, 128> and K3's own kernel for it
+UNEQUAL_HEAD_DIMS = ((192, 128),)
 
 # Launches per kernel, counted by each wrapper right after its kernel was
 # accepted by the device (``flash_bwd_dq``: the dq pass; ``flash_bwd_dkv``:
-# K3); ``reset_launches`` zeroes them.
-launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# K3). An unequal pair's instances count under the kernel's name and
+# ``.<D>x<Dv>`` (``flash_fwd.192x128``), a key that appears at its first
+# launch. ``reset_launches`` zeroes the counts and drops those keys.
+_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+launches = dict.fromkeys(_KERNELS, 0)
+
+
+def _count_launch(name: str, d: int, dv: int) -> None:
+    key = name if d == dv else f"{name}.{d}x{dv}"
+    launches[key] = launches.get(key, 0) + 1
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    launches.clear()
+    launches.update(dict.fromkeys(_KERNELS, 0))
 
 
 # Causal tile-skip algebra (the CUDA kernels' loop bounds use the same
@@ -127,17 +143,17 @@ def flash_fwd_plain(
     q, k, v, causal: bool, scale: float, block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
     window: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1's plain version. q [B,H,T,D], k/v [B,Hkv,T,D] → (o [B,H,T,D] in
-    q's dtype, lse [B,H,T] f32). Walks the kernel's tiles: per q tile, an
+    """K1's plain version. q [B,H,T,D], k [B,Hkv,T,D], v [B,Hkv,T,Dv] → (o
+    [B,H,T,Dv] in q's dtype, lse [B,H,T] f32). Walks the kernel's tiles: per q tile, an
     online softmax over the k tiles from the window's first to the causal
     bound, P rounded to v's dtype before P·V, fully masked rows emitting 0."""
     _check_window(causal, window)
     b, h, t, d = q.shape
-    h_kv = k.shape[1]
+    h_kv, dv = k.shape[1], v.shape[-1]
     g = h // h_kv
     q5 = q.reshape(b, h_kv, g, t, d).float()
     kf = k.float()
-    o = torch.empty(b, h_kv, g, t, d, dtype=q.dtype, device=q.device)
+    o = torch.empty(b, h_kv, g, t, dv, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, h_kv, g, t, dtype=torch.float32, device=q.device)
     n_kb = -(-t // block_k)
     for q0 in range(0, t, block_q):
@@ -147,7 +163,7 @@ def flash_fwd_plain(
         q_idx = torch.arange(q0, q0 + rows, device=q.device)
         m = torch.full((b, h_kv, g, rows), _NEG_INF, device=q.device)
         l = torch.zeros_like(m)
-        acc = torch.zeros(b, h_kv, g, rows, d, device=q.device)
+        acc = torch.zeros(b, h_kv, g, rows, dv, device=q.device)
         k_end = min(n_kb, _causal_last_k_tile(qi, block_q, block_k) + 1) if causal else n_kb
         k_first = _window_first_k_tile(q0, window, block_k) if window else 0
         for ki in range(k_first, k_end):
@@ -168,7 +184,7 @@ def flash_fwd_plain(
         safe = torch.where(l == 0.0, torch.ones_like(l), l)
         o[:, :, :, q0:q0 + rows] = (acc / safe[..., None]).to(q.dtype)
         lse[:, :, :, q0:q0 + rows] = m + torch.log(safe)
-    return o.reshape(b, h, t, d), lse.reshape(b, h, t)
+    return o.reshape(b, h, t, dv), lse.reshape(b, h, t)
 
 
 def _bwd_probs(q, k, v, do, lse, delta, causal: bool, scale: float, window: int = 0):
@@ -178,7 +194,7 @@ def _bwd_probs(q, k, v, do, lse, delta, causal: bool, scale: float, window: int 
     h_kv = k.shape[1]
     g = h // h_kv
     q5 = q.reshape(b, h_kv, g, t, d).float()
-    do5 = do.reshape(b, h_kv, g, t, d).float()
+    do5 = do.reshape(b, h_kv, g, t, do.shape[-1]).float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", q5, k.float()) * scale
     p = torch.exp(s - lse.reshape(b, h_kv, g, t)[..., None])
     if causal:
@@ -199,7 +215,7 @@ def flash_bwd_plain(q, k, v, do, lse, delta, causal: bool, scale: float, window:
     g = h // h_kv
     p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale, window)
     q5 = q.reshape(b, h_kv, g, t, d).float()
-    do5 = do.reshape(b, h_kv, g, t, d).float()
+    do5 = do.reshape(b, h_kv, g, t, do.shape[-1]).float()
     ds_k = ds.to(k.dtype).float()  # dS rounded as each product's operand
     ds_q = ds_k if q.dtype == k.dtype else ds.to(q.dtype).float()
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds_k, k.float()) * scale
@@ -216,8 +232,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "flash_fwd_bf16": [_P] * 5 + [_I] * 7 + [_F, _P],
-    "flash_bwd_dkv_bf16": [_P] * 9 + [_I] * 7 + [_F, _P],
+    "flash_fwd_bf16": [_P] * 5 + [_I] * 8 + [_F, _P],
+    "flash_bwd_dkv_bf16": [_P] * 9 + [_I] * 8 + [_F, _P],
     "flash_bwd_dq_bf16": [_P, _P, ctypes.c_longlong, _F, _P],
 }
 
@@ -245,12 +261,22 @@ def _dims(q, k, v, causal: bool = True, window: int = 0):
         raise ValueError(
             f"the CUDA flash kernels take bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}"
         )
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError("q/k/v must be [B,H,T,D] / [B,Hkv,T,D]")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q/k/v must be [B,H,T,D] / [B,Hkv,T,D] / [B,Hkv,T,Dv]")
     b, h, t, d = q.shape
-    h_kv = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not supported by the CUDA kernels ({HEAD_DIMS})")
+    h_kv, dv = k.shape[1], v.shape[-1]
+    if tuple(v.shape[:3]) != tuple(k.shape[:3]):
+        raise ValueError(f"v {tuple(v.shape)} and k {tuple(k.shape)} differ before the head width")
+    if dv != d:
+        if (d, dv) not in UNEQUAL_HEAD_DIMS:
+            raise ValueError(f"(q/k, v) head widths ({d}, {dv}) not supported by the CUDA "
+                             f"kernels: equal widths in {HEAD_DIMS} or the pairs "
+                             f"{UNEQUAL_HEAD_DIMS}")
+        if window:
+            raise ValueError(f"the ({d}, {dv}) CUDA kernels have no window, got {window}")
+    elif d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not supported by the CUDA kernels ({HEAD_DIMS}, or "
+                         f"the (q/k, v) pairs {UNEQUAL_HEAD_DIMS})")
     if window and d not in WINDOW_HEAD_DIMS:
         raise ValueError(f"the windowed CUDA kernels are compiled at head_dim "
                          f"{WINDOW_HEAD_DIMS}, got {d}")
@@ -260,7 +286,7 @@ def _dims(q, k, v, causal: bool = True, window: int = 0):
         raise ValueError(f"the CUDA kernels take 0 < T and B*H <= 65535, got T={t}, B*H={b * h}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
-    return b, h, h_kv, t, d
+    return b, h, h_kv, t, d, dv
 
 
 def _stream(device) -> int:
@@ -268,54 +294,54 @@ def _stream(device) -> int:
 
 
 def flash_fwd_cuda(q, k, v, causal: bool, scale: float, window: int = 0):
-    """Launch K1. Returns (o [B,H,T,D] bf16, lse [B,H,T] f32)."""
-    b, h, h_kv, t, d = _dims(q, k, v, causal, window)
+    """Launch K1. Returns (o [B,H,T,Dv] bf16, lse [B,H,T] f32)."""
+    b, h, h_kv, t, d, dv = _dims(q, k, v, causal, window)
     q = _operand(q, "q", (b, h, t, d))
     k = _operand(k, "k", (b, h_kv, t, d))
-    v = _operand(v, "v", (b, h_kv, t, d))
-    o = torch.empty_like(q)
+    v = _operand(v, "v", (b, h_kv, t, dv))
+    o = q.new_empty(b, h, t, dv)
     lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         rc = lib.flash_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b, h, h_kv, t, d, int(causal), int(window), float(scale), _stream(q.device),
+            b, h, h_kv, t, d, dv, int(causal), int(window), float(scale), _stream(q.device),
         )
     _build.check(lib, rc, "flash_fwd")
-    launches["flash_fwd"] += 1
+    _count_launch("flash_fwd", d, dv)
     return o, lse
 
 
 def _bwd_operands(q, k, v, do, lse, delta, causal: bool, window: int):
-    b, h, h_kv, t, d = _dims(q, k, v, causal, window)
+    b, h, h_kv, t, d, dv = _dims(q, k, v, causal, window)
     if do.dtype != q.dtype:
         raise ValueError(f"dO must be {q.dtype}, got {do.dtype}")
     if lse.dtype != torch.float32 or delta.dtype != torch.float32:
         raise ValueError("lse and delta must be float32")
-    return (b, h, h_kv, t, d), (
+    return (b, h, h_kv, t, d, dv), (
         _operand(q, "q", (b, h, t, d)),
         _operand(k, "k", (b, h_kv, t, d)),
-        _operand(v, "v", (b, h_kv, t, d)),
-        _operand(do, "dO", (b, h, t, d)),
+        _operand(v, "v", (b, h_kv, t, dv)),
+        _operand(do, "dO", (b, h, t, dv)),
         _operand(lse, "lse", (b, h, t)),
         _operand(delta, "delta", (b, h, t)),
     )
 
 
 def flash_bwd_cuda(q, k, v, do, lse, delta, causal: bool, scale: float, window: int = 0):
-    """Launch K3, then the dq pass. Returns (dq [B,H,T,D], dk, dv
-    [B,Hkv,T,D]), bf16. K3 adds dq's f32 sum into a zeroed [B,H,T,D]
+    """Launch K3, then the dq pass. Returns (dq [B,H,T,D], dk [B,Hkv,T,D],
+    dv [B,Hkv,T,Dv]), bf16. K3 adds dq's f32 sum into a zeroed [B,H,T,D]
     accumulator, which lives until the pass has read it."""
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dq_acc, causal, scale, window)
-    return flash_bwd_dq_cuda(dq_acc, scale), dk, dv
+    return flash_bwd_dq_cuda(dq_acc, scale, v.shape[-1]), dk, dv
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dq_acc, causal: bool, scale: float,
                        window: int = 0):
-    """Launch K3 alone: returns (dk, dv) [B,Hkv,T,D] bf16 and adds dq's
-    unscaled f32 sum into ``dq_acc`` (f32 [B,H,T,D] on the card)."""
-    (b, h, h_kv, t, d), ops = _bwd_operands(q, k, v, do, lse, delta, causal, window)
+    """Launch K3 alone: returns (dk [B,Hkv,T,D], dv [B,Hkv,T,Dv]) bf16 and
+    adds dq's unscaled f32 sum into ``dq_acc`` (f32 [B,H,T,D] on the card)."""
+    (b, h, h_kv, t, d, dv_), ops = _bwd_operands(q, k, v, do, lse, delta, causal, window)
     if (dq_acc.dtype != torch.float32 or tuple(dq_acc.shape) != (b, h, t, d)
             or dq_acc.device != ops[0].device or not dq_acc.is_contiguous()
             or dq_acc.data_ptr() % 16):
@@ -327,18 +353,21 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dq_acc, causal: bool, scale: flo
     with torch.cuda.device(dk.device):
         rc = lib.flash_bwd_dkv_bf16(
             *(x.data_ptr() for x in ops), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, h_kv, t, d, int(causal), int(window), float(scale), _stream(dk.device),
+            b, h, h_kv, t, d, dv_, int(causal), int(window), float(scale), _stream(dk.device),
         )
     _build.check(lib, rc, "flash_bwd_dkv")
-    launches["flash_bwd_dkv"] += 1
+    _count_launch("flash_bwd_dkv", d, dv_)
     return dk, dv
 
 
-def flash_bwd_dq_cuda(dq_acc, scale: float):
+def flash_bwd_dq_cuda(dq_acc, scale: float, dv: Optional[int] = None):
     """Launch the dq pass: bf16(scale · dq_acc) for an f32 CUDA tensor whose
-    last dimension is a head dim of ``HEAD_DIMS``."""
-    if dq_acc.dtype != torch.float32 or dq_acc.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"the dq pass takes f32 [..., D] with D in {HEAD_DIMS}, got "
+    last dimension D is a head dim of ``HEAD_DIMS`` or a q/k width of
+    ``UNEQUAL_HEAD_DIMS``; ``dv`` (v's width, D by default) names the launch
+    count (the pass itself is one kernel for every width)."""
+    dims = HEAD_DIMS + tuple(d for d, _ in UNEQUAL_HEAD_DIMS)
+    if dq_acc.dtype != torch.float32 or dq_acc.shape[-1] not in dims:
+        raise ValueError(f"the dq pass takes f32 [..., D] with D in {dims}, got "
                          f"{dq_acc.dtype} {tuple(dq_acc.shape)}")
     dq_acc = _operand(dq_acc, "dq_acc", dq_acc.shape)
     dq = torch.empty(dq_acc.shape, dtype=torch.bfloat16, device=dq_acc.device)
@@ -348,7 +377,7 @@ def flash_bwd_dq_cuda(dq_acc, scale: float):
             dq_acc.data_ptr(), dq.data_ptr(), dq_acc.numel(), float(scale), _stream(dq.device),
         )
     _build.check(lib, rc, "flash_bwd_dq")
-    launches["flash_bwd_dq"] += 1
+    _count_launch("flash_bwd_dq", dq.shape[-1], dv or dq.shape[-1])
     return dq
 
 
@@ -388,7 +417,7 @@ def _flash_fwd_kernel(q, k, v, causal, scale, block_q, block_k, window=0):
 
 @flash_fwd_op.register_fake
 def _flash_fwd_fake(q, k, v, causal, scale, block_q, block_k, window=0):
-    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+    return q.new_empty(*q.shape[:3], v.shape[-1]), q.new_empty(q.shape[:3], dtype=torch.float32)
 
 
 _BWD_ARGS = ("(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, Tensor delta, "
@@ -477,8 +506,10 @@ def flash_attention(
     layout: str = "bthd",
     window: int = 0,
 ):
-    """Flash attention in model layout q [B,T,H,D], k/v [B,T,Hkv,D] or, with
-    ``layout="bhtd"``, in the kernels' heads-major layout. Differentiable.
+    """Flash attention in model layout q [B,T,H,D], k [B,T,Hkv,D], v
+    [B,T,Hkv,Dv] (Dv = D, or a pair of ``UNEQUAL_HEAD_DIMS`` on the card) or,
+    with ``layout="bhtd"``, in the kernels' heads-major layout; o has v's
+    width, and ``scale`` defaults to D^-1/2. Differentiable.
     ``window`` (with ``causal``): each query sees its last ``window`` keys,
     itself included; 0 is none.
 
@@ -524,7 +555,7 @@ def _block_reference(q_blk, k, v, q_offset: int, *, causal: bool, scale: float):
     p = torch.softmax(s, dim=-1)
     p5 = p.reshape(b, h_kv, g, bq, k.shape[2])
     o = torch.einsum("bhgqk,bhkd->bhgqd", p5, v.float())
-    return o.reshape(b, h, bq, d).to(q_blk.dtype)
+    return o.reshape(b, h, bq, v.shape[-1]).to(q_blk.dtype)
 
 
 def _chunked_reference(q, k, v, *, causal: bool, scale: float, block_q: int):

@@ -7,14 +7,17 @@ module has ``Config``, ``init(config, generator, device)``, ``apply``,
 ``nn.Module`` speaks parallel/sharding.py's protocol (``logical_axes``,
 ``fsdp_units``, ``set_parallel``).
 
-One family is the port's own, with no JAX twin: afmoe (Arcee's Trinity
+Two families are the port's own, with no JAX twin: afmoe (Arcee's Trinity
 models: gated attention, windowed and global, over a dropless top-k MoE
-with a shared expert). It has ``Config``, ``init``, ``apply`` and the
-sharding protocol, trains through ``llama.loss_fn``, and its model's
-``after_update`` moves the experts' balancing bias after each update.
+with a shared expert) and deepseek_v3 (DeepSeek-V3 blocks, here Kakao's
+Kanana-2: multi-head latent attention, q/k 192 wide and v 128 over a
+512-wide latent, over the same MoE with two shared experts). Each has
+``Config``, ``init``, ``apply`` and the sharding protocol, trains through
+``llama.loss_fn``, and its model's ``after_update`` moves the experts'
+balancing bias after each update.
 """
 
-from mpi_operator_tpu_torch.models import afmoe, llama, mnist, resnet
+from mpi_operator_tpu_torch.models import afmoe, deepseek_v3, llama, mnist, resnet
 
 # name → (module, config factory); the factory bakes in the depth/preset so
 # registry users can't get a module whose default Config contradicts the name
@@ -26,8 +29,10 @@ MODELS = {
     "llama-tiny": (llama, llama.tiny),
     "trinity-mini": (afmoe, afmoe.trinity_mini),
     "afmoe-tiny": (afmoe, afmoe.tiny),
+    "kanana-2-30b-a3b": (deepseek_v3, deepseek_v3.kanana_2_30b_a3b),
+    "deepseek-v3-tiny": (deepseek_v3, deepseek_v3.tiny),
 }
 # the names above that the JAX package's registry does not have
-PORT_ONLY = ("trinity-mini", "afmoe-tiny")
+PORT_ONLY = ("trinity-mini", "afmoe-tiny", "kanana-2-30b-a3b", "deepseek-v3-tiny")
 
-__all__ = ["afmoe", "mnist", "resnet", "llama", "MODELS", "PORT_ONLY"]
+__all__ = ["afmoe", "deepseek_v3", "mnist", "resnet", "llama", "MODELS", "PORT_ONLY"]

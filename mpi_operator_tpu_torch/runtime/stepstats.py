@@ -219,7 +219,9 @@ def reset_counters() -> None:
 
 
 MARK_KERNEL = "tpujob_span_mark"  # the marks' kernels: MARK_KERNEL + "_" + point
-MARK_POINTS = ("fwd", "bwd", "opt", "end")
+# the trainer's four a step, then models/deepseek_v3's two a layer (before the
+# latent attention's projections, and before K1)
+MARK_POINTS = ("fwd", "bwd", "opt", "end", "mla_in", "mla_attn")
 _mark_lib: Optional[ctypes.CDLL] = None
 
 
@@ -248,8 +250,9 @@ def device_mark(device, point: str) -> None:
     """During a capture on the calling thread, launch the mark of ``point``
     (one of :data:`MARK_POINTS`: ``tpujob_span_mark_<point>``) on
     ``device``'s current stream; nothing otherwise, nor for a ``device`` of
-    None (one that :func:`load_device_marks` refused)."""
-    if device is None or not _profiler_enabled():
+    None (one that :func:`load_device_marks` refused), nor before the mark
+    kernels were loaded (a model's marks outside the trainer's set-up)."""
+    if device is None or _mark_lib is None or not _profiler_enabled():
         return
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = _mark_lib.tpujob_span_mark_launch(MARK_POINTS.index(point), stream)

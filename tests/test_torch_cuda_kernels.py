@@ -21,9 +21,10 @@ from mpi_operator_tpu_torch.kernels import flash_attention as tfa
 TOL_ROW = 1e-2
 
 
-def _inputs(seed, b, t, h, h_kv, d):
+def _inputs(seed, b, t, h, h_kv, d, dv=None):
     rng = np.random.default_rng(seed)
-    shapes = ((b, h, t, d), (b, h_kv, t, d), (b, h_kv, t, d), (b, h, t, d))
+    dv = dv or d
+    shapes = ((b, h, t, d), (b, h_kv, t, d), (b, h_kv, t, dv), (b, h, t, dv))
     return tuple(
         torch.from_numpy(rng.standard_normal(s, np.float32)).to(torch.bfloat16).cuda()
         for s in shapes
@@ -57,10 +58,10 @@ def _need_card():
         pytest.skip("needs a CUDA card: the kernels have no CPU or interpret mode")
 
 
-def _check_against_plain(seed, b, t, h, h_kv, d, causal):
+def _check_against_plain(seed, b, t, h, h_kv, d, causal, dv=None):
     """K1 and the backward (K3 and the dq pass) against their plain
-    versions on one input."""
-    q, k, v, do = _inputs(seed, b, t, h, h_kv, d)
+    versions on one input (v, o and dO of width ``dv``, d by default)."""
+    q, k, v, do = _inputs(seed, b, t, h, h_kv, d, dv)
     scale = d ** -0.5
     o, lse = tfa.flash_fwd_cuda(q, k, v, causal, scale)
     o_ref, lse_ref = tfa.flash_fwd_plain(q, k, v, causal, scale)
@@ -122,6 +123,55 @@ def test_fused_backward_matches_plain(t, g, causal, d):
     per-row bars."""
     _need_card()
     _check_against_plain(10 + d + g, 1, t, 2 * g, 2, d, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize(
+    "t,h,h_kv",
+    [
+        (17, 4, 4),     # T shorter than one tile
+        (65, 2, 2),     # T one past a 64-row q tile: its second half is past T
+        (200, 4, 4),    # ragged, MHA as multi-head latent attention runs it
+        (129, 8, 2),    # GQA 4:1 (K3 loops over the q heads of a kv head)
+        (4096, 4, 4),   # 32 k tiles, up to 64 reduce-adds into one dq row
+    ],
+)
+def test_unequal_widths_match_plain(t, h, h_kv, causal):
+    """The (192, 128) instances (q/k 192 wide, v 128; multi-head latent
+    attention): K1 <192, 0, 128>, K3's own kernel for the pair (q tiles in
+    halves of 32, dQ's three 64-column blocks dealt to the warpgroups) and
+    the dq pass, against the plain versions under _check_against_plain's
+    ceilings and per-row bars."""
+    _need_card()
+    _check_against_plain(40 + t + h, 1, t, h, h_kv, 192, causal, dv=128)
+
+
+@pytest.mark.cuda
+def test_unequal_widths_deterministic_and_counted():
+    """K1's o and lse and K3's dk and dv of the (192, 128) pair are the same
+    bits on two launches, dq within its reduce-add order; the launches count
+    under the pair's own keys and not the equal-width ones."""
+    _need_card()
+    q, k, v, do = _inputs(3, 1, 1000, 4, 4, 192, 128)
+    scale = 192 ** -0.5
+    tfa.reset_launches()
+    runs = []
+    for _ in range(2):
+        o, lse = tfa.flash_fwd_cuda(q, k, v, True, scale)
+        delta = (do.float() * o.float()).sum(-1)
+        runs.append((o, lse, *tfa.flash_bwd_cuda(q, k, v, do, lse, delta, True, scale)))
+    (o1, l1, dq1, dk1, dv1), (o2, l2, dq2, dk2, dv2) = runs
+    assert o1.shape == (1, 4, 1000, 128) and dv1.shape == (1, 4, 1000, 128)
+    assert dq1.shape == (1, 4, 1000, 192) and dk1.shape == (1, 4, 1000, 192)
+    for a, b in ((o1, o2), (l1, l2), (dk1, dk2), (dv1, dv2)):
+        assert torch.equal(a, b)
+    _reduction_order_close(dq1, dq2)
+    assert tfa.launches == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                            "flash_fwd.192x128": 2, "flash_bwd_dkv.192x128": 2,
+                            "flash_bwd_dq.192x128": 2}
+    tfa.reset_launches()
+    assert tfa.launches == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 @pytest.mark.cuda
